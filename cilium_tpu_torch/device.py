@@ -1,0 +1,62 @@
+"""Device resolution and a small probe of the card.
+
+Twin of the engine list in ``cilium_tpu/utils/platform.py``: the port
+has two verdict engines, ``hash`` and ``dense``; on a CUDA device the
+dense engine's verdict stage is the hand-written kernel
+``csrc/dense_verdict.cu``.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+from typing import Dict, Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means ``"cuda"``.  Raises when a CUDA device is asked
+    for (explicitly or by default) and none is present: the port never
+    falls back to the CPU quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run the "
+            "plain PyTorch versions on the host")
+    return dev
+
+
+def nvidia_smi(fields: str) -> Optional[str]:
+    """``nvidia-smi --query-gpu=<fields> --format=csv,noheader`` for the
+    first card, or None where nvidia-smi is absent."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return None
+    out = subprocess.run(
+        [exe, f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def probe() -> Dict:
+    """Torch version, CUDA presence, device name, compute capability
+    (9.0 = Hopper), power limit and the verdict engines on offer."""
+    feats: Dict = {"torch": torch.__version__,
+                   "cuda": torch.version.cuda,
+                   "cuda_available": torch.cuda.is_available()}
+    if feats["cuda_available"]:
+        major, minor = torch.cuda.get_device_capability(0)
+        feats.update(device_name=torch.cuda.get_device_name(0),
+                     device_count=torch.cuda.device_count(),
+                     capability=f"{major}.{minor}",
+                     hopper=major == 9,
+                     sm_count=torch.cuda.get_device_properties(0)
+                     .multi_processor_count,
+                     name_power_limit=nvidia_smi("name,power.limit"),
+                     max_sm_clock=nvidia_smi("clocks.max.sm"))
+    feats["verdict_engines"] = ["hash", "dense"] + \
+        (["dense-cuda"] if feats["cuda_available"] else [])
+    return feats
