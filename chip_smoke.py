@@ -12,21 +12,33 @@ script exits non-zero:
    limit.
 2. build: the kernel ``cilium_tpu_torch/csrc/dense_verdict.cu``
    compiled by nvcc for sm_90a; then its SASS, read by cuobjdump, gives
-   the instructions a (packet, entry) pair issues per pipe, from which
-   the kernel's bound is computed.
-3. parity: each kernel's wrapper against its plain PyTorch version on
+   the instructions a (packet, entry) pair issues per pipe in the
+   verdict kernel's segment loop, from which the kernel's bound is
+   computed; a second bound takes the function's own three compares a
+   pair on the ALU pipe.
+3. refusals: on the card, a table whose endpoints are not contiguous
+   raises in ``dense_segments``, and segments of other tables, or of
+   tables changed in place since, raise in ``dense_verdict``.  Then
+   parity: each kernel's wrapper against its plain PyTorch version on
    the card, bit-exact (tolerance 0: int32 verdicts and counters), on
    ragged batches, many entry tiles, identities >= 2**31, ports >= 32768
-   and proxy-port values.
+   and proxy-port values, and on the edges of the kernel's grouping by
+   endpoint: every packet on one endpoint, an endpoint without entries,
+   endpoints out of range, every packet deciding on one entry, a
+   segment over two tiles, a batch that is no block multiple.
 4. config1: the port's config-1 path (ipcache LPM -> 3-stage verdict ->
    per-entry counters) through both engines, hash and dense, at
-   B = 2**20 packets for two policy states: BASELINE config 1 (100 rules
-   x 16 endpoints) and the 10k-rule north-star state.  Hash verdicts must
-   equal dense verdicts, both must equal the scalar oracle on a 4,096
-   packet sample, the dense kernel must have been launched, and the
-   kernel must equal its plain version on the whole batch (verdicts and
-   every entry's counters).  Then both engines, the kernel alone and the
-   plain version are timed with CUDA events.
+   B = 2**20 packets for two policy states, BASELINE config 1 (100 rules
+   x 16 endpoints) and the 10k-rule north-star state, each on two
+   packet streams: the bench's uniform one (the main path) and an
+   allow-heavy one (``workloads.config1_allow_heavy_packets``).  Hash
+   verdicts must equal dense verdicts, both must equal the scalar
+   oracle on a 4,096 packet sample, the dense kernel must have been
+   launched, and the kernel must equal its plain version on the whole
+   batch (verdicts and every entry's counters).  Then both engines and
+   the kernel alone are timed with CUDA events, the kernel's device
+   time is split by kernel with torch.profiler (the grouping's share),
+   and the plain version is timed on the uniform batch.
 5. the kernels line, the card's name and power limit from nvidia-smi,
    and a last line ``{"ok": true, "device": {...}}``.
 
@@ -41,17 +53,19 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from cilium_tpu_torch import kernels, sass_mix
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, oracle_lpm_u32,
                                            parse_prefixes)
 from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
 from cilium_tpu_torch.datapath.codes import VERDICT_DROP, WORLD_IDENTITY
-from cilium_tpu_torch.device import probe
+from cilium_tpu_torch.device import cuda_ms, probe
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
-from cilium_tpu_torch.workloads import Config1Run
+from cilium_tpu_torch.workloads import TRAFFICS, Config1Run
 
 BATCH = 1 << 20
 ORACLE_SAMPLE = 4096
@@ -66,55 +80,70 @@ def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def cuda_ms(fn, iters: int) -> list:
-    """Per-call device time of ``fn`` in ms, one CUDA event pair each,
-    after one warm-up call."""
+def device_breakdown(fn, calls: int) -> dict:
+    """Device ms per call of each kernel (and memset) that ``fn``
+    launches, from ``torch.profiler`` over ``calls`` calls after a
+    warm-up; {} where the profiler records no device time."""
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:96]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
-def dense_bound_ms(tables, pkt_ep, pair_s: float) -> dict:
+# the kernels of csrc/dense_verdict.cu that group the packets by endpoint
+GROUPING = ("histogram_kernel", "scan_kernel", "scatter_kernel")
+
+
+# Equality compares a (packet, entry) pair needs whatever the kernel:
+# identity, exact meta word, L3 meta word.  The wildcard test (key_a ==
+# 0) is one per entry, not per pair.
+FUNCTION_COMPARES_PER_PAIR = 3
+
+
+def dense_bound_ms(tables, pkt_ep, pair_s: float,
+                   function_pair_s: float) -> dict:
     """Least time for the dense verdict's work on the card: the larger of
     its bytes (entries read once, packets read once, verdicts and the
     two counter arrays written once) over the memory rate and its pairs
-    at ``pair_s`` seconds each (the kernel's per-pair instructions over
-    the card's rate for their pipe).  ``bound_ms`` counts the pairs this
-    run's data needs: each packet against its own endpoint's entries.
-    ``all_pairs_bound_ms`` counts every (packet, entry) pair, the work
-    of the kernel as it stands."""
+    at ``pair_s`` seconds each (the kernel's per-pair instructions from
+    its SASS over the card's rate for their pipe).  ``bound_ms`` counts
+    the pairs this run's data needs: each packet against its own
+    endpoint's entries.  ``function_bound_ms`` takes the same pairs at
+    ``function_pair_s``, the function's own compares a pair on the ALU
+    pipe, whatever any kernel spends beside them.  ``all_pairs_bound_ms``
+    counts every (packet, entry) pair at ``pair_s``."""
     n, b = int(tables.ep.shape[0]), int(pkt_ep.shape[0])
     real = tables.ep[tables.ep >= 0].to(torch.int64)
-    per_ep = torch.bincount(real, minlength=int(pkt_ep.max()) + 1)
-    pairs = int(per_ep[pkt_ep.to(torch.int64)].sum())
+    per_ep = torch.bincount(real)
+    ep = pkt_ep[(pkt_ep >= 0) & (pkt_ep < per_ep.shape[0])]
+    pairs = int(per_ep[ep.to(torch.int64)].sum())
     t_bytes = 4 * (4 * n + 6 * b + b + 2 * n) / HBM_BYTES_PER_S * 1e3
     t_ops = pairs * pair_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "pairs": pairs, "all_pairs_bound_ms": max(
-                t_bytes, b * n * pair_s * 1e3)}
+            "pairs": pairs,
+            "function_bound_ms": max(t_bytes,
+                                     pairs * function_pair_s * 1e3),
+            "all_pairs_bound_ms": max(t_bytes, b * n * pair_s * 1e3)}
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernel vs plain version
 # ---------------------------------------------------------------------------
 
-def _random_states(n_endpoints, n_rules, seed, wide):
-    """Random per-endpoint states; ``wide`` draws identities >= 2**31
-    and ports >= 32768 too.  Every state carries L3-only and wildcard
-    keys and proxy-port values."""
+def _random_states(n_endpoints, n_rules, seed, wide, pool=16):
+    """Random per-endpoint states over ``pool`` identities and ports;
+    ``wide`` draws identities >= 2**31 and ports >= 32768 too.  Every
+    state carries L3-only and wildcard keys and proxy-port values."""
     rng = np.random.default_rng(seed)
-    idents = rng.integers(256, 4096, 16)
-    ports = rng.integers(1, 2048, 16)
+    idents = rng.integers(256, 4096, pool)
+    ports = rng.integers(1, 2048, pool)
     if wide:
         idents = np.r_[idents, rng.integers(2 ** 31, 2 ** 32, 8)]
         ports = np.r_[ports, rng.integers(32768, 65536, 8)]
@@ -135,7 +164,7 @@ def _random_states(n_endpoints, n_rules, seed, wide):
     return states, idents, ports
 
 
-def _random_packets(n_endpoints, idents, ports, batch, seed, dev):
+def _random_packets(n_endpoints, idents, ports, batch, seed):
     rng = np.random.default_rng(seed)
     ident_pool = np.r_[idents, rng.integers(0, 2 ** 32, 16)]
     cols = (rng.integers(0, n_endpoints, batch),
@@ -145,14 +174,13 @@ def _random_packets(n_endpoints, idents, ports, batch, seed, dev):
             rng.choice([6, 6, 6, 0, 17], batch),
             rng.integers(0, 2, batch),
             rng.integers(40, 65536, batch))
-    return tuple(torch.as_tensor(np.asarray(c, np.int32), device=dev)
-                 for c in cols)
+    return [np.asarray(c, np.int32) for c in cols]
 
 
-def compare_dense(tables, pkts) -> dict:
+def compare_dense(tables, pkts, segments) -> dict:
     """Kernel (``dense_verdict``) vs plain version on the same tensors;
     raises unless verdict and both counter deltas are bit-equal."""
-    got = dv.dense_verdict(tables, *pkts)
+    got = dv.dense_verdict(tables, *pkts, segments=segments)
     want = dv.dense_verdict_reference(tables, *pkts)
     torch.cuda.synchronize()
     err = 0
@@ -169,27 +197,120 @@ def compare_dense(tables, pkts) -> dict:
             "proxied": int((v > 0).sum())}
 
 
+def _case(n_ep, n_rules, batch, seed, wide, pool=16):
+    states, idents, ports = _random_states(n_ep, n_rules, 100 + seed, wide,
+                                           pool)
+    return states, _random_packets(n_ep, idents, ports, batch, 200 + seed)
+
+
+def _parity_cases():
+    """(name, map states, packet columns on the host) of each parity
+    case.  The first four hold the kernel's tails and key ranges; the
+    rest the edges of its grouping: one endpoint for every packet, an
+    endpoint with no entries, endpoints out of range, every packet on
+    one entry, a segment over two tiles with a ragged tail, a batch that
+    is no multiple of a verdict block (512 packets) or of a grouping
+    block (4,096), and more endpoints than a grouping block counts in
+    shared memory."""
+    yield ("ragged-b1000", *_case(4, 24, 1000, 0, False))
+    yield ("ragged-b4097-wide", *_case(8, 60, 4097, 1, True))
+    yield ("many-tiles-n-not-tile-multiple",
+           *_case(16, 700, 1 << 14, 2, True))
+    yield ("one-packet", *_case(3, 10, 1, 3, True))
+
+    states, pk = _case(4, 60, 1 << 20, 4, True)
+    pk[0][:] = 2
+    yield "one-endpoint-all-2^20-packets", states, pk
+
+    states, pk = _case(5, 40, 1 << 16, 5, True)
+    states[1] = PolicyMapState()  # receives packets, holds no entry
+    states[4] = PolicyMapState()  # beyond the last real row: E = 4
+    yield "endpoint-without-entries", states, pk
+
+    states, pk = _case(6, 40, 1 << 16, 6, True)
+    rng = np.random.default_rng(6)
+    odd = rng.random(pk[0].shape[0]) < 0.3
+    pk[0][odd] = rng.choice(np.array([-1, -5, 6, 7, 1 << 20, -(1 << 31)],
+                                     np.int32), int(odd.sum()))
+    yield "endpoints-out-of-range", states, pk
+
+    st = PolicyMapState()
+    st[PolicyKey(identity=0, dest_port=80, nexthdr=6)] = \
+        PolicyMapStateEntry(proxy_port=15001)
+    _, pk = _case(1, 1, 1 << 20, 7, True)
+    pk[0][:], pk[2][:], pk[3][:], pk[4][:] = 0, 80, 6, 0
+    yield "every-packet-on-one-entry", [st], pk
+
+    states, pk = _case(2, 3000, 1 << 14, 8, True, pool=64)
+    yield "segment-over-two-tiles-ragged", states, pk
+
+    yield ("b-not-block-multiple", *_case(6, 80, 5 * 1024 + 77, 9, True))
+
+    # more endpoints than a grouping block keeps bins for in shared
+    # memory (4,096): the bins are bumped in global memory instead
+    yield ("endpoints-over-shared-bins", *_case(4100, 2, 1 << 16, 10, True))
+
+
+def phase_refusals(dev) -> None:
+    """On the card: a table whose endpoints are not contiguous is
+    refused by ``dense_segments``; segments of other tables with the same
+    N and E, or of tables changed in place since, by ``dense_verdict``."""
+    col = torch.tensor([0, 0, 1, 0] + [-1] * 124, dtype=torch.int32,
+                       device=dev)
+    split = dv.DenseTables(col, col.clone(), col.clone(), col.clone())
+    refused = []
+    try:
+        dv.dense_segments(split)
+    except ValueError as exc:
+        refused.append(str(exc))
+    states, pk = _case(4, 24, 1000, 0, False)
+    tables = dv.compile_dense(states, device=dev)
+    twin = dv.compile_dense(states, device=dev)
+    pkts = tuple(torch.as_tensor(c, device=dev) for c in pk)
+    for name, segments in (("other-tables", dv.dense_segments(twin)),
+                           ("changed-in-place",
+                            dv.dense_segments(tables))):
+        if name == "changed-in-place":
+            tables.value.add_(1)
+        try:
+            dv.dense_verdict(tables, *pkts, segments=segments)
+        except ValueError as exc:
+            refused.append(str(exc))
+    if len(refused) != 3:
+        raise AssertionError(f"refused {len(refused)} of 3: {refused}")
+    emit("refusals", kernel="dense_verdict", refused=refused)
+
+
 def phase_parity(dev) -> float:
-    cases = [  # (name, endpoints, rules, batch, wide keys)
-        ("ragged-b1000", 4, 24, 1000, False),
-        ("ragged-b4097-wide", 8, 60, 4097, True),
-        ("many-tiles-n-not-tile-multiple", 16, 700, 1 << 14, True),
-        ("one-packet", 3, 10, 1, True),
-    ]
     worst = 0
-    for i, (name, n_ep, n_rules, batch, wide) in enumerate(cases):
-        states, idents, ports = _random_states(n_ep, n_rules, 100 + i,
-                                               wide)
+    for name, states, pk in _parity_cases():
         tables = dv.compile_dense(states, device=dev)
-        pkts = _random_packets(n_ep, idents, ports, batch, 200 + i, dev)
-        res = compare_dense(tables, pkts)
-        # kTile = 2048 entries in csrc/dense_verdict.cu
-        if name.startswith("many-tiles") and res["n"] % 2048 == 0:
+        segments = dv.dense_segments(tables)
+        pkts = tuple(torch.as_tensor(c, device=dev) for c in pk)
+        res = compare_dense(tables, pkts, segments)
+        seg = np.diff(segments.offsets.cpu().numpy())
+        # kTile = 1024 entries in csrc/dense_verdict.cu
+        if name.startswith("many-tiles") and res["n"] % 1024 == 0:
             raise AssertionError("entry count must not be a tile multiple")
-        if batch > 1 and (res["allows"] == 0 or res["proxied"] == 0):
+        if name.startswith("segment-over") and \
+                not (seg.max() > 2048 and seg.max() % 1024):
+            raise AssertionError(f"{name}: segments {seg.tolist()}")
+        if name.startswith("every-packet") and \
+                res["allows"] + res["proxied"] != res["b"]:
+            raise AssertionError(f"{name}: not every packet decided")
+        if name.startswith("endpoints-over") and \
+                segments.n_endpoints <= 4096:
+            raise AssertionError(f"{name}: {segments.n_endpoints} endpoints")
+        if name.startswith("endpoint-without") and \
+                (segments.n_endpoints != 4 or seg[1] != 0):
+            raise AssertionError(f"{name}: segments {seg.tolist()}")
+        if res["b"] > 1 and not name.startswith("every-packet") and \
+                (res["allows"] == 0 or res["proxied"] == 0):
             raise AssertionError(f"{name}: no allow or proxy verdicts")
         worst = max(worst, res["max_abs_err"])
-        emit("parity", kernel="dense_verdict", case=name, **res)
+        emit("parity", kernel="dense_verdict", case=name,
+             endpoints=segments.n_endpoints, longest_segment=int(seg.max())
+             if seg.size else 0, **res)
     return worst
 
 
@@ -197,17 +318,17 @@ def phase_parity(dev) -> float:
 # phase 4: the config-1 path
 # ---------------------------------------------------------------------------
 
-def run_state(label, n_rules, dev, batch, oracle_sample, iters,
-              pair_s) -> dict:
-    """``iters``: {"hash": n, "dense": n, "kernel": n, "plain": n} timed
-    calls; ``pair_s``: least seconds per (packet, entry) pair."""
-    t0 = time.perf_counter()
-    run = Config1Run(n_rules, batch, dev)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    n = int(run.dense.ep.shape[0])
-
-    # the main path, once through each engine, kernel launches counted
+def run_traffic(run, label, traffic, oracle_sample, iters, pair_s,
+                function_pair_s) -> dict:
+    """Drive ``run`` (a ``Config1Run``) on the packet stream ``traffic``:
+    one step through each engine with the kernel's launches counted from
+    0, the checks, the whole-batch kernel = plain check, then the timed
+    calls.  ``iters``: {"hash": n, "dense": n, "kernel": n, "plain": n}
+    timed calls (plain 0: not timed); ``pair_s`` and ``function_pair_s``:
+    least seconds per (packet, entry) pair, from the kernel's SASS and
+    from the function's own compares."""
+    run.set_traffic(traffic)
+    batch = run.batch
     torch.cuda.reset_peak_memory_stats()
     dv.dense_verdict.launches = 0
     hv, hident, h_counters = run.hash_step()
@@ -218,18 +339,22 @@ def run_state(label, n_rules, dev, batch, oracle_sample, iters,
         raise AssertionError("dense_verdict kernel was not launched")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
+    where = f"{label} ({traffic})"
     if not torch.equal(hv, dvv):
-        raise AssertionError(f"{label}: hash verdicts != dense verdicts")
+        raise AssertionError(f"{where}: hash verdicts != dense verdicts")
     if not torch.equal(hident, dident):
-        raise AssertionError(f"{label}: hash identities != dense")
-    non_drop = int((hv != VERDICT_DROP).sum())
+        raise AssertionError(f"{where}: hash identities != dense")
+    pk = run.pkt
+    passed = hv != VERDICT_DROP
+    non_drop = int(passed.sum())
     counted = {"hash": int(h_counters.packets.sum(dtype=torch.int64)),
                "dense": int(d_pk.sum(dtype=torch.int64))}
     if counted["hash"] != non_drop or counted["dense"] != non_drop:
-        raise AssertionError(f"{label}: counted {counted} != non-drop "
+        raise AssertionError(f"{where}: counted {counted} != non-drop "
                              f"{non_drop}")
-    if int(d_by.sum(dtype=torch.int64)) != 512 * non_drop:
-        raise AssertionError(f"{label}: dense byte counters off")
+    want_bytes = int(pk["length"][passed].sum(dtype=torch.int64))
+    if int(d_by.sum(dtype=torch.int64)) != want_bytes:
+        raise AssertionError(f"{where}: dense byte counters off")
 
     # scalar oracle on a sample, spread over the batch
     idx = np.linspace(0, batch - 1, min(oracle_sample, batch)).astype(int)
@@ -243,15 +368,15 @@ def run_state(label, n_rules, dev, batch, oracle_sample, iters,
         want_v = oracle_verdict(run.states[host["endpoint"][i]], want_id,
                                 int(host["dport"][i]), 6, 1)
         if id_host[i] != want_id or v_host[i] != want_v:
-            raise AssertionError(f"{label}: packet {i} oracle mismatch")
+            raise AssertionError(f"{where}: packet {i} oracle mismatch")
+
+    # the kernel against its plain version on the whole batch: verdicts
+    # and every entry's packet and byte deltas
+    args = (pk["endpoint"], dident, pk["dport"], pk["proto"],
+            pk["direction"], pk["length"])
+    parity = compare_dense(run.dense, args, run.segments)
 
     # timing: each engine's whole step, then the kernel alone
-    pk = run.pkt
-
-    def kernel_once():
-        dv.dense_verdict(run.dense, pk["endpoint"], dident, pk["dport"],
-                         pk["proto"], pk["direction"], pk["length"])
-
     engines = {}
     for name, fn in (("hash", run.hash_step), ("dense", run.dense_step)):
         ms = cuda_ms(fn, iters[name])
@@ -260,28 +385,51 @@ def run_state(label, n_rules, dev, batch, oracle_sample, iters,
             "median_batch_ms": float(np.median(ms)),
             "p99_batch_ms": float(np.percentile(ms, 99)),
             "max_batch_ms": float(max(ms)), "samples": len(ms)}
-    k_ms = cuda_ms(kernel_once, iters["kernel"])
-    result = {"label": label, "rules": n_rules, "entries": n,
-              "lpm_prefixes": len(run.prefixes),
-              "policy_slots": run.compiled.slots,
-              "policy_probe": run.compiled.max_probe,
-              "lpm_slots": run.lpm.slots, "lpm_probe": run.lpm.max_probe,
-              "batch": batch, "setup_s": setup_s, "launches": launches,
-              "non_drop": non_drop, "oracle_sample": len(idx),
-              "peak_gb": peak_gb, "engines": engines,
-              "kernel_ms": float(np.median(k_ms)), "kernel_samples": len(k_ms),
-              **dense_bound_ms(run.dense, pk["endpoint"], pair_s)}
 
-    # the kernel against its plain version on the whole main-path batch:
-    # verdicts and every entry's packet and byte deltas
-    args = (pk["endpoint"], dident, pk["dport"], pk["proto"],
-            pk["direction"], pk["length"])
-    result["parity"] = compare_dense(run.dense, args)
-    result["plain_ms"] = float(np.median(cuda_ms(
-        lambda: dv.dense_verdict_reference(run.dense, *args),
-        iters["plain"])))
+    def kernel_once():
+        dv.dense_verdict(run.dense, *args, segments=run.segments)
+
+    k_ms = cuda_ms(kernel_once, iters["kernel"])
+    parts = device_breakdown(kernel_once, 3)
+    grouping = sum(ms for name, ms in parts.items()
+                   if any(g in name for g in GROUPING))
+    result = {"label": label, "traffic": traffic, "batch": batch,
+              "entries": int(run.dense.ep.shape[0]),
+              "launches": launches, "non_drop": non_drop,
+              "oracle_sample": len(idx), "peak_gb": peak_gb,
+              "engines": engines, "kernel_ms": float(np.median(k_ms)),
+              "kernel_samples": len(k_ms), "parity": parity,
+              "device_breakdown": parts,
+              "grouping_share": grouping / sum(parts.values())
+              if parts else None,
+              **dense_bound_ms(run.dense, pk["endpoint"], pair_s,
+                               function_pair_s)}
+    if iters["plain"]:
+        result["plain_ms"] = float(np.median(cuda_ms(
+            lambda: dv.dense_verdict_reference(run.dense, *args),
+            iters["plain"])))
     emit("config1", **result)
     return result
+
+
+def run_state(label, n_rules, dev, batch, oracle_sample, iters, pair_s,
+              function_pair_s) -> dict:
+    """One policy state through both traffics; ``iters`` maps each
+    traffic to ``run_traffic``'s timed calls.  The uniform stream, the
+    bench's, runs first: it is the main path."""
+    t0 = time.perf_counter()
+    run = Config1Run(n_rules, batch, dev)
+    torch.cuda.synchronize()
+    emit("state", label=label, rules=n_rules,
+         entries=int(run.dense.ep.shape[0]),
+         endpoints=run.segments.n_endpoints,
+         lpm_prefixes=len(run.prefixes), policy_slots=run.compiled.slots,
+         policy_probe=run.compiled.max_probe, lpm_slots=run.lpm.slots,
+         lpm_probe=run.lpm.max_probe,
+         setup_s=time.perf_counter() - t0)
+    return {traffic: run_traffic(run, label, traffic, oracle_sample,
+                                 iters[traffic], pair_s, function_pair_s)
+            for traffic in TRAFFICS}
 
 
 def main() -> int:
@@ -304,42 +452,61 @@ def main() -> int:
 
     # the bound's operation rate: the kernel's per-pair instructions from
     # its SASS, over the card's lanes for each pipe
-    mix = sass_mix.hot_loop_mix(kernels.sass("dense_verdict"),
-                                "dense_verdict_kernel")
+    mix = sass_mix.hot_loop_mix(
+        kernels.sass("dense_verdict"), "segment_verdict_kernel",
+        dv.PACKETS_PER_THREAD)
     clock_hz = float(feats["max_sm_clock"].split()[0]) * 1e6
     pair = sass_mix.pair_seconds(mix["per_pair"], feats["sm_count"],
                                  clock_hz)
+    pair_s = pair["seconds"]
+    function_pair_s = FUNCTION_COMPARES_PER_PAIR / (
+        sass_mix.LANES["alu"] * feats["sm_count"] * clock_hz)
     emit("sass", kernel="dense_verdict", **mix, sm_count=feats["sm_count"],
-         max_sm_clock_hz=clock_hz, pair_seconds=pair["seconds"],
-         bound_pipe=pair["pipe"])
+         max_sm_clock_hz=clock_hz, pair_seconds=pair_s,
+         bound_pipe=pair["pipe"], function_pair_seconds=function_pair_s)
 
+    phase_refusals(dev)
     parity_err = phase_parity(dev)
 
-    base = run_state("baseline-config1", 100, dev, BATCH, ORACLE_SAMPLE,
-                     {"hash": 1000, "dense": 1000, "kernel": 200,
-                      "plain": 3}, pair["seconds"])
-    north = run_state("north-star-10k", 10_000, dev, BATCH, ORACLE_SAMPLE,
-                      {"hash": 1000, "dense": 20, "kernel": 10, "plain": 1},
-                      pair["seconds"])
+    base = run_state("baseline-config1", 100, dev, BATCH, ORACLE_SAMPLE, {
+        "uniform": {"hash": 1000, "dense": 1000, "kernel": 200, "plain": 3},
+        "allow-heavy": {"hash": 200, "dense": 200, "kernel": 200,
+                        "plain": 0}}, pair_s, function_pair_s)
+    north = run_state("north-star-10k", 10_000, dev, BATCH, ORACLE_SAMPLE, {
+        "uniform": {"hash": 1000, "dense": 50, "kernel": 100, "plain": 1},
+        "allow-heavy": {"hash": 200, "dense": 50, "kernel": 100,
+                        "plain": 0}}, pair_s, function_pair_s)
 
+    def at(res):
+        return {"b": res["batch"], "n": res["entries"],
+                "ms": res["kernel_ms"], "bound_ms": res["bound_ms"],
+                "bound_by": res["bound_by"],
+                "function_bound_ms": res["function_bound_ms"],
+                "all_pairs_bound_ms": res["all_pairs_bound_ms"],
+                "launches": res["launches"],
+                "max_abs_err": res["parity"]["max_abs_err"],
+                "grouping_share": res["grouping_share"]}
+
+    runs = [res for state in (base, north) for res in state.values()]
+    main_b, main_n = base["uniform"], north["uniform"]
     print(json.dumps({"kernels": [{
         "name": "dense_verdict", "route": "cuda",
         "source": "cilium_tpu_torch/csrc/dense_verdict.cu",
         "replaces": "cilium_tpu/ops/dense_verdict.py:155",
-        "launches": base["launches"] + north["launches"],
-        "max_abs_err": max(parity_err, base["parity"]["max_abs_err"],
-                           north["parity"]["max_abs_err"]),
-        "ms": base["kernel_ms"], "plain_ms": base["plain_ms"],
-        "bound_ms": base["bound_ms"], "bound_by": base["bound_by"],
-        "all_pairs_bound_ms": base["all_pairs_bound_ms"],
-        "library_ms": None,
-        "shape": {"b": base["batch"], "n": base["entries"]},
-        "north_star": {"b": north["batch"], "n": north["entries"],
-                       "ms": north["kernel_ms"],
-                       "plain_ms": north["plain_ms"],
-                       "bound_ms": north["bound_ms"],
-                       "bound_by": north["bound_by"],
-                       "all_pairs_bound_ms": north["all_pairs_bound_ms"]}}]}),
+        "launches": main_b["launches"] + main_n["launches"],
+        "max_abs_err": max([parity_err] + [res["parity"]["max_abs_err"]
+                                           for res in runs]),
+        "ms": main_b["kernel_ms"], "plain_ms": main_b["plain_ms"],
+        "bound_ms": main_b["bound_ms"], "bound_by": main_b["bound_by"],
+        "function_bound_ms": main_b["function_bound_ms"],
+        "all_pairs_bound_ms": main_b["all_pairs_bound_ms"],
+        "library_ms": None, "kernels_per_launch": list(GROUPING) +
+        ["segment_verdict_kernel"],
+        "shape": {"b": main_b["batch"], "n": main_b["entries"]},
+        "grouping_share": main_b["grouping_share"],
+        "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
+        "allow_heavy": {"baseline": at(base["allow-heavy"]),
+                        "north_star": at(north["allow-heavy"])}}]}),
           flush=True)
     print(feats["name_power_limit"], flush=True)
     print(json.dumps({"ok": True, "device": {

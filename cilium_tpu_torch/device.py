@@ -1,4 +1,4 @@
-"""Device resolution and a small probe of the card.
+"""Device resolution, a small probe of the card, and CUDA-event timing.
 
 Twin of the engine list in ``cilium_tpu/utils/platform.py``: the port
 has two verdict engines, ``hash`` and ``dense``; on a CUDA device the
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -60,3 +60,20 @@ def probe() -> Dict:
     feats["verdict_engines"] = ["hash", "dense"] + \
         (["dense-cuda"] if feats["cuda_available"] else [])
     return feats
+
+
+def cuda_ms(fn: Callable[[], object], iters: int) -> List[float]:
+    """Per-call device time of ``fn`` in ms, one CUDA event pair each,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times

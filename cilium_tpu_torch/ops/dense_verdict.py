@@ -9,8 +9,11 @@ counter deltas at the entry that decided each packet.
 ``dense_verdict`` is the kernel wrapper.  On CUDA tensors it launches
 the hand-written kernel ``csrc/dense_verdict.cu`` (the port of the
 Pallas kernel ``_dense_tiled_kernel``) or raises; on CPU tensors it runs
-the plain version ``dense_verdict_reference``.  The dense LPM stays in
-plain torch.  Both plain versions work in chunks of packets so that the
+the plain version ``dense_verdict_reference``.  The kernel compares
+each packet with its own endpoint's entries only, which
+``compile_dense`` stores contiguously; ``dense_segments`` derives where
+each endpoint's run lies, once per table.  The dense LPM stays in plain
+torch.  Both plain versions work in chunks of packets so that the
 [chunk, N] compare matrices stay small at any batch size.
 
 Counters are wrapping int32 holding the reference's uint32 bits (torch
@@ -20,8 +23,9 @@ has no ``index_add_`` for uint32), added into in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 import ipaddress
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,6 +86,51 @@ def compile_dense(map_states: Sequence[PolicyMapState],
                        key_b=_i32(kbs, dev), value=_i32(vals, dev))
 
 
+class DenseSegments(NamedTuple):
+    """Where each endpoint's entries lie in a ``DenseTables``, for the
+    kernel: endpoint ``e`` owns rows ``offsets[e]:offsets[e + 1]``.
+    ``entries`` is a copy of the tables, so the segments hold the tables
+    they were made from and those tensors' version counters, and
+    ``dense_verdict`` refuses them for any other tables or once a table
+    tensor has been changed in place."""
+
+    offsets: torch.Tensor   # [E + 1] int32, on the tables' device
+    n_endpoints: int        # E: the last real row's endpoint + 1
+    entries: torch.Tensor   # [N, 4] int32 rows (ep, key_a, key_b, value)
+    source: DenseTables     # the tables these segments describe
+    versions: Tuple[int, ...]  # their tensors' ``_version`` at the copy
+
+
+def _versions(tables: DenseTables) -> Tuple[int, ...]:
+    return tuple(t._version for t in tables)
+
+
+def dense_segments(tables: DenseTables) -> DenseSegments:
+    """Derive the endpoint segments of ``tables``; reads ``tables.ep``
+    on the host once (a sync on a card), so build them with the tables
+    and hand them to every step.  Raises unless the real rows' ``ep``
+    are non-negative and non-decreasing and only ``-1`` padding rows
+    follow them, as ``compile_dense`` lays them out.  An endpoint below
+    E with no rows gets an empty segment."""
+    ep = tables.ep.cpu().numpy()
+    real = int(np.argmax(ep < 0)) if (ep < 0).any() else ep.shape[0]
+    if (ep[real:] != -1).any():
+        raise ValueError("dense_segments: rows after the first padding "
+                         "row (ep = -1) must all be padding")
+    if (np.diff(ep[:real]) < 0).any():
+        raise ValueError("dense_segments: each endpoint's rows must be "
+                         "contiguous, in increasing endpoint order")
+    n_endpoints = int(ep[real - 1]) + 1 if real else 0
+    offsets = np.searchsorted(ep[:real], np.arange(n_endpoints + 1),
+                              side="left").astype(np.int32)
+    dev = tables.ep.device
+    return DenseSegments(offsets=torch.as_tensor(offsets, device=dev),
+                         n_endpoints=n_endpoints,
+                         entries=torch.stack(tuple(tables), dim=1)
+                         .contiguous(),
+                         source=tables, versions=_versions(tables))
+
+
 def _chunk_rows(n_cols: int) -> int:
     return max(1, _CHUNK_ELEMS // max(1, n_cols))
 
@@ -138,28 +187,59 @@ def dense_verdict_reference(tables: DenseTables, pkt_ep, pkt_ident,
     return verdict, d_pk, d_by
 
 
-def _kernel_library():
-    """``csrc/dense_verdict.cu`` loaded, its launch function typed.
+# Packets each thread of the verdict kernel compares with every entry
+# it loads: ``kPerThread`` in ``csrc/dense_verdict.cu``.
+PACKETS_PER_THREAD = 2
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C functions of a built ``csrc/dense_verdict.cu``.
     Pointers and the stream go as c_void_p: a bare Python int would be
     cut to 32 bits."""
-    lib = kernels.load("dense_verdict")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dense_verdict_launch.restype = i
-    lib.dense_verdict_launch.argtypes = [p, p, p, p, i, p, p, p, p, p, p, i,
-                                         p, p, p, i, p]
+    lib.dense_verdict_launch.argtypes = [p, i, p, i, p, p, p, p, p, p, i,
+                                         p, p, p, p, i, p]
+    lib.dense_verdict_scratch_words.restype = ctypes.c_longlong
+    lib.dense_verdict_scratch_words.argtypes = [i, i]
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_library() -> ctypes.CDLL:
+    return declare(kernels.load("dense_verdict"))
+
+
+def check_segments(tables: DenseTables, segments: DenseSegments) -> None:
+    """Raise unless ``segments`` were made by ``dense_segments(tables)``
+    and no table tensor has changed in place since."""
+    if any(s is not t for s, t in zip(segments.source, tables)):
+        raise ValueError("dense_verdict: segments were made from other "
+                         "tables; build them with dense_segments(tables)")
+    if segments.versions != _versions(tables):
+        raise ValueError("dense_verdict: the tables changed in place after "
+                         "their segments were made; build them again")
+
+
 def dense_verdict(tables: DenseTables, pkt_ep, pkt_ident, pkt_dport,
-                  pkt_proto, pkt_dir, pkt_len
+                  pkt_proto, pkt_dir, pkt_len, *,
+                  segments: Optional[DenseSegments] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dense verdict stage: (verdict [B], d_packets [N], d_bytes [N]).
 
-    On CPU tensors: ``dense_verdict_reference``.  On CUDA tensors: one
-    launch of ``csrc/dense_verdict.cu`` on the current stream, counted
-    in ``dense_verdict.launches``; anything the kernel does not take
-    (mixed devices, a dtype other than int32, non-contiguous or mismatched
-    shapes) raises.  Any B and any N are taken."""
+    ``segments`` must be ``dense_segments(tables)``, made since the
+    tables last changed (``check_segments``, on either device); ``None``
+    derives them here, a host sync on a card.
+    On CPU tensors: ``dense_verdict_reference``.
+    On CUDA tensors: one launch of ``csrc/dense_verdict.cu`` on the
+    current stream (four kernels: it groups the packets by endpoint and
+    compares each group with its endpoint's segment only), counted in
+    ``dense_verdict.launches``.
+    Anything the kernel does not take (mixed devices, a dtype other than
+    int32, non-contiguous or mismatched shapes) raises.  Any B and any N
+    are taken; packets whose endpoint has no segment drop."""
+    if segments is not None:
+        check_segments(tables, segments)
     args = (*tables, pkt_ep, pkt_ident, pkt_dport, pkt_proto, pkt_dir,
             pkt_len)
     devices = {t.device for t in args}
@@ -183,18 +263,30 @@ def dense_verdict(tables: DenseTables, pkt_ep, pkt_ident, pkt_dport,
                          "length and packet arrays another")
     if n >= 2 ** 31 or b >= 2 ** 31:
         raise ValueError("dense_verdict: B and N must fit int32")
+    if segments is None:
+        segments = dense_segments(tables)
     dev = pkt_ep.device
-    verdict = torch.empty(b, dtype=torch.int32, device=dev)
-    d_pk = torch.zeros(n, dtype=torch.int32, device=dev)
-    d_by = torch.zeros(n, dtype=torch.int32, device=dev)
+    if segments.entries.device != dev or segments.offsets.device != dev \
+            or tuple(segments.entries.shape) != (n, 4) \
+            or tuple(segments.offsets.shape) != (segments.n_endpoints + 1,):
+        raise ValueError("dense_verdict: segments do not fit these tables")
     if b == 0:
-        return verdict, d_pk, d_by
+        zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+        return (torch.empty(0, dtype=torch.int32, device=dev), zeros,
+                zeros.clone())
+    verdict = torch.empty(b, dtype=torch.int32, device=dev)
+    # the launch zeroes the two counter arrays itself
+    d_pk = torch.empty(n, dtype=torch.int32, device=dev)
+    d_by = torch.empty(n, dtype=torch.int32, device=dev)
     lib = _kernel_library()
+    n_ep = segments.n_endpoints
+    scratch = torch.empty(lib.dense_verdict_scratch_words(b, n_ep),
+                          dtype=torch.int32, device=dev)
     ptr = lambda t: t.data_ptr()  # noqa: E731
     code = lib.dense_verdict_launch(
-        *map(ptr, tables), n, *map(ptr, args[4:]), b, ptr(verdict),
-        ptr(d_pk), ptr(d_by), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(segments.entries), n, ptr(segments.offsets), n_ep,
+        *map(ptr, args[4:]), b, ptr(verdict), ptr(d_pk), ptr(d_by),
+        ptr(scratch), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(lib, code, "dense_verdict launch")
     dense_verdict.launches += 1
     return verdict, d_pk, d_by
@@ -263,7 +355,7 @@ def dense_datapath_step(tables: DenseTables, lpm: DenseLPM,
                         counters_packets: torch.Tensor,
                         counters_bytes: torch.Tensor, pkt_ep,
                         pkt_src_addr, pkt_dport, pkt_proto, pkt_dir,
-                        pkt_len):
+                        pkt_len, *, segments: Optional[DenseSegments] = None):
     """Gather-free config-1 step: dense ipcache LPM -> dense 3-stage
     verdict (the CUDA kernel on a card) -> per-entry counters, added
     into in place.  Returns (verdict, identity, counters_packets,
@@ -274,7 +366,7 @@ def dense_datapath_step(tables: DenseTables, lpm: DenseLPM,
     identity = torch.where(found, ident, world)
     verdict, d_pk, d_by = dense_verdict(tables, pkt_ep, identity,
                                         pkt_dport, pkt_proto, pkt_dir,
-                                        pkt_len)
+                                        pkt_len, segments=segments)
     counters_packets.add_(d_pk)
     counters_bytes.add_(d_by)
     return verdict, identity, counters_packets, counters_bytes
@@ -287,6 +379,7 @@ class DenseVerdictEngine:
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.tables = compile_dense(map_states, device=self.device)
+        self.segments = dense_segments(self.tables)
         n = self.tables.ep.shape[0]
         self.counters_packets = torch.zeros(n, dtype=torch.int32,
                                             device=self.device)
@@ -303,7 +396,8 @@ class DenseVerdictEngine:
                                    device=self.device)
         verdict, d_pk, d_by = dense_verdict(
             self.tables, arr(pkt_ep), arr(pkt_ident), arr(pkt_dport),
-            arr(pkt_proto), arr(pkt_dir), arr(pkt_len))
+            arr(pkt_proto), arr(pkt_dir), arr(pkt_len),
+            segments=self.segments)
         self.counters_packets.add_(d_pk)
         self.counters_bytes.add_(d_by)
         return verdict

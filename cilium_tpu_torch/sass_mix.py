@@ -2,11 +2,11 @@
 
 ``hot_loop_mix`` takes ``cuobjdump -sass`` text (``kernels.sass``),
 finds the kernel's innermost loop with the most shared-memory loads (the
-dense verdict's unrolled entry loop: one ``LDS.128`` per entry), drops
-the blocks that predicated forward branches inside that loop jump over
-(the accumulate taken only on a hit) and counts what remains, the
-instructions a (packet, entry) pair issues on the miss path, by
-execution pipe.
+dense verdict's unrolled entry loop: one ``LDS.128`` per entry, which
+feeds each of the thread's packets), drops the blocks that predicated
+forward branches inside that loop jump over (the accumulate taken only
+on a hit) and counts what remains, the instructions a (packet, entry)
+pair issues on the miss path, by execution pipe.
 
 Pipes (Nsight Compute's names; per SM and clock on Hopper): ``alu``,
 integer compare, logic, add and select, 64 lanes; ``fma``, IMAD and the
@@ -69,11 +69,13 @@ def _target(insn: Insn) -> int:
     return int(re.search(r"0x([0-9a-f]+)", insn.operands).group(1), 16)
 
 
-def hot_loop_mix(text: str, kernel: str) -> Dict:
+def hot_loop_mix(text: str, kernel: str, packets_per_load: int = 1
+                 ) -> Dict:
     """Per-pair instruction counts of ``kernel``'s entry loop on the miss
-    path: {"loop": [head, back edge], "pairs_per_iteration",
-    "per_pair": {"alu", "fma", "issue"}, "opcodes": {op: count per
-    iteration}}."""
+    path, where each thread compares ``packets_per_load`` packets with
+    every entry it loads: {"loop": [head, back edge],
+    "pairs_per_iteration", "per_pair": {"alu", "fma", "issue"},
+    "opcodes": {op: count per iteration}}."""
     insns = parse(text, kernel)
     back = [i for i in insns if i.op == "BRA" and _target(i) <= i.addr]
     loops = []
@@ -87,7 +89,8 @@ def hot_loop_mix(text: str, kernel: str) -> Dict:
             loops.append((lds, head, b.addr, body))
     if not loops:
         raise ValueError(f"{kernel}: no loop with shared-memory loads")
-    pairs, head, end, body = max(loops, key=lambda x: x[0])
+    loads, head, end, body = max(loops, key=lambda x: x[0])
+    pairs = loads * packets_per_load
     skipped = [(i.addr, _target(i)) for i in body
                if i.op == "BRA" and i.pred and i.addr < _target(i) <= end]
     hot = [i for i in body

@@ -26,7 +26,9 @@ from cilium_tpu_torch import convert, device
 from cilium_tpu_torch.compiler import lpm, policy_tables
 from cilium_tpu_torch.datapath import pipeline, verdict
 from cilium_tpu_torch.ops import dense_verdict as dense
-from cilium_tpu_torch.workloads import build_config1, config1_packets
+from cilium_tpu_torch.workloads import (build_config1,
+                                        config1_allow_heavy_packets,
+                                        config1_packets)
 
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,9 +57,10 @@ def _ref_states(states):
     return out
 
 
-def _hit_heavy(prefixes, states, seed=3):
+def _hit_heavy_loop(prefixes, states, seed=3):
     """Packets sourced inside the policy's prefixes, to the rules'
-    ports or near them, so that every stage and counter is exercised."""
+    ports or near them, so that every stage and counter is exercised:
+    the loop that ``config1_allow_heavy_packets`` vectorises."""
     pk = config1_packets(BATCH, len(states), seed=seed)
     rng = np.random.default_rng(seed)
     nets = lpm.parse_prefixes(prefixes)
@@ -104,7 +107,7 @@ def _eq_u32(t, a):
 def test_config1_hash_and_dense_match_reference(config1, stream):
     states, prefixes = config1
     pk = config1_packets(BATCH, len(states)) if stream == "bench" \
-        else _hit_heavy(prefixes, states)
+        else config1_allow_heavy_packets(BATCH, len(states), prefixes, states)
     frag = np.zeros(BATCH, np.int32)
     (v, ident, counters), (rv, rident, rcounters), _ = _both_hash_steps(
         states, prefixes, pk, frag)
@@ -150,7 +153,8 @@ def test_config1_hash_fragments_and_converted_state(config1):
     """Fragments through the hash step, and the port run on the JAX
     package's own tables carried across by ``convert.from_jax_arrays``."""
     states, prefixes = config1
-    pk = _hit_heavy(prefixes, states, seed=5)
+    pk = config1_allow_heavy_packets(BATCH, len(states), prefixes, states,
+                                     seed=5)
     frag = (np.random.default_rng(5).random(BATCH) < 0.2).astype(np.int32)
     (v, _, counters), (rv, _, rc), (rt, _, rcp, rcl, rraw) = \
         _both_hash_steps(states, prefixes, pk, frag)
@@ -191,6 +195,18 @@ def test_config1_hash_fragments_and_converted_state(config1):
         convert.from_jax_arrays(dense_lpm={
             f: np.zeros(4, np.int64) for f in dense.DenseLPM._fields},
             device="cpu")
+
+
+@pytest.mark.parametrize("seed", [3, 5])
+def test_allow_heavy_generator_matches_the_loop(config1, seed):
+    states, prefixes = config1
+    got = config1_allow_heavy_packets(BATCH, len(states), prefixes, states,
+                                      seed=seed)
+    want = _hit_heavy_loop(prefixes, states, seed=seed)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == np.int32
+        np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(config1):
