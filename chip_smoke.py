@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's config-1 verdict path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's verdict paths on one NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -39,7 +39,28 @@ script exits non-zero:
    the kernel alone are timed with CUDA events, the kernel's device
    time is split by kernel with torch.profiler (the grouping's share),
    and the plain version is timed on the uniform batch.
-5. the kernels line, the card's name and power limit from nvidia-smi,
+5. v4: the v4 stateful serving step (prefilter -> service DNAT ->
+   conntrack -> ipcache -> policy -> CT create -> rev-NAT -> overlay)
+   through ``Datapath.process_packed`` at the full width of the
+   north-star state (``workloads.v4_serving_state``: the 10k-rule policy,
+   10,000 services, 1,000 prefilter CIDRs, 256 peer nodes, a 2**20-slot
+   conntrack table).  Parity: the same port on the card and on the CPU,
+   from one seed, 2 batches at B = 2**20 then 8 at B = 2**16 across a GC
+   and a restore of a conntrack snapshot taken mid-run; after every
+   batch verdicts, events, identities, every NAT field, the counters,
+   every CT field (sentinel included) and the provenance are compared
+   bit for bit and the mismatch counts printed.  Then ``process_packed``
+   on batches already on the card under
+   ``torch.cuda.set_sync_debug_mode("error")``, and behind a half-second
+   ``torch.cuda._sleep`` before which it must return (a host read in the
+   step fails the run), timing of ``process_packed`` (one H2D of the [10, B]
+   matrix from a pinned buffer per call) and of ``process`` (ten H2D
+   copies from the host columns) with CUDA events after warm-up batches
+   that fill the table, the table's occupancy, the shares of verdicts and
+   events, and a ``torch.profiler`` breakdown of the step.  No
+   hand-written kernel runs on this path: the dense kernel's launch
+   count, set to 0 before it, is read after it.
+6. the kernels line, the card's name and power limit from nvidia-smi,
    and a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -60,12 +81,18 @@ from cilium_tpu_torch import kernels, sass_mix
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, oracle_lpm_u32,
                                            parse_prefixes)
 from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
+from cilium_tpu_torch.datapath import conntrack, engine, events
 from cilium_tpu_torch.datapath.codes import VERDICT_DROP, WORLD_IDENTITY
+from cilium_tpu_torch.datapath.pipeline import PACKED_FIELDS
 from cilium_tpu_torch.device import cuda_ms, probe
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
-from cilium_tpu_torch.workloads import TRAFFICS, Config1Run
+from cilium_tpu_torch.profile_config1 import V4_WARMUP, profile_v4
+from cilium_tpu_torch.workloads import (TRAFFICS, V4_T0,
+                                        Config1Run, V4Run,
+                                        v4_serving_packets,
+                                        v4_serving_state)
 
 BATCH = 1 << 20
 ORACLE_SAMPLE = 4096
@@ -432,6 +459,234 @@ def run_state(label, n_rules, dev, batch, oracle_sample, iters, pair_s,
             for traffic in TRAFFICS}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the v4 stateful step
+# ---------------------------------------------------------------------------
+
+V4_STATE = {}           # v4_serving_state() arguments: full width
+V4_BATCH = 1 << 20
+V4_SMALL = 1 << 16
+V4_FLOWS = 1 << 16
+V4_CT_SLOTS = 1 << 20
+V4_CT_PROBE = 8
+V4_TIMED = {"process_packed": 60, "process": 30}
+# about half a second of torch.cuda._sleep at the H100's 1.98 GHz
+SLEEP_CYCLES = 1_000_000_000
+
+
+def v4_mismatches(outs_g, outs_c, gpu, cpu) -> dict:
+    """Elements that differ between the card's and the CPU's step, per
+    output: verdict, event, identity, every NAT field, both counters,
+    every CT field (sentinel included, the discard slot left out) and
+    the provenance slot and tier."""
+    pairs = [(name, g, c) for name, g, c in
+             zip(("verdict", "event", "identity"), outs_g[:3], outs_c[:3])]
+    pairs += [(f"nat.{f}", getattr(outs_g[3], f), getattr(outs_c[3], f))
+              for f in outs_g[3]._fields]
+    pairs += [(f"counters.{f}", getattr(gpu.counters, f),
+               getattr(cpu.counters, f)) for f in ("packets", "bytes")]
+    n = gpu.ct.slots + 1
+    pairs += [(f"ct.{f}", gpu.ct.state[i, :n], cpu.ct.state[i, :n])
+              for i, f in enumerate(conntrack.FIELDS)]
+    if gpu.provenance_enabled:
+        pairs += [(f"provenance.{f}", getattr(gpu.last_provenance, f),
+                   getattr(cpu.last_provenance, f))
+                  for f in ("match_slot", "tier")]
+    return {name: int((g.cpu() != c).sum()) for name, g, c in pairs}
+
+
+def v4_parity(state, dev) -> dict:
+    """The port on the card and on the CPU, from one seed and one state:
+    2 batches at B = 2**20, then 8 at B = 2**16 after a 60 s pause (so
+    SYN-only and closed entries have expired), with a snapshot after the
+    5th batch, a GC after the 6th and, after the 8th, a restore of that
+    snapshot into both.  Raises on any mismatch."""
+    pair = []
+    for where in (dev, torch.device("cpu")):
+        dp = engine.Datapath(ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                             device=where)
+        state.load(dp)
+        dp.enable_provenance()
+        pair.append(dp)
+    gpu, cpu = pair
+    total = {}
+    big = v4_serving_packets(state, V4_BATCH, n_flows=V4_FLOWS, seed=5)
+    small = v4_serving_packets(state, V4_SMALL, n_flows=V4_FLOWS // 16,
+                               seed=6)
+    snapshot = None
+    for k in range(10):
+        b, stream = (V4_BATCH, big) if k < 2 else (V4_SMALL, small)
+        now = V4_T0 + k if k < 2 else V4_T0 + 60 + k
+        host = torch.as_tensor(next(stream))
+        outs_g = gpu.process_packed(host.to(dev), now=now)
+        outs_c = cpu.process_packed(host, now=now)
+        torch.cuda.synchronize()
+        extra = {}
+        if k == 4:
+            snapshot = gpu.snapshot_ct()
+        if k == 5:
+            extra["gc_deleted"] = [gpu.gc(now), cpu.gc(now)]
+        if k == 7:
+            extra["restored"] = [gpu.restore_ct_snapshots(*snapshot),
+                                 cpu.restore_ct_snapshots(*snapshot)]
+        mism = v4_mismatches(outs_g, outs_c, gpu, cpu)
+        for name, (g, c) in extra.items():
+            mism[name] = int(g != c)
+        for name, bad in mism.items():
+            total[name] = total.get(name, 0) + bad
+        emit("v4-parity", batch_index=k, b=b, now=now,
+             mismatches=sum(mism.values()),
+             ct_entries=gpu.ct_entries()[0], **extra,
+             nonzero={n: v for n, v in mism.items() if v})
+        if any(mism.values()):
+            raise AssertionError(f"v4 step: card != CPU at batch {k}: "
+                                 f"{ {n: v for n, v in mism.items() if v} }")
+    return {"batches": 10, "mismatches": total}
+
+
+def v4_sync_check(run: V4Run) -> dict:
+    """No host read inside ``process_packed``, shown two ways on batches
+    already on the card, provenance on and off:
+
+    - under ``set_sync_debug_mode("error")`` every synchronising call
+      PyTorch detects raises;
+    - behind a ``torch.cuda._sleep`` that holds the stream for about
+      half a second, the call must return on the host before the sleep
+      ends: a read anywhere in the step would wait for it."""
+    batches = [torch.as_tensor(run.next_batch(), device=run.device)
+               for _ in range(4)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    end.record()
+    end.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    host_ms = []
+    for i, prov in enumerate((True, False)):
+        (run.dp.enable_provenance if prov else run.dp.disable_provenance)()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run.step(batches[i])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        run.advance()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        run.step(batches[2 + i])
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        run.advance()
+    if max(host_ms) >= sleep_ms:
+        raise AssertionError(f"process_packed waited for the card: host "
+                             f"{host_ms} ms behind a {sleep_ms} ms sleep")
+    return {"calls": 4, "sync_debug_mode": "error", "raised": False,
+            "sleep_ms": sleep_ms, "host_ms_behind_sleep": host_ms}
+
+
+def v4_timed(run: V4Run, calls: int, packed_path: bool) -> dict:
+    """Per-batch device time of ``calls`` fresh batches, CUDA events
+    around the host-to-device copy and the step (clock, GC and the
+    next batch's generation outside): ``process_packed`` copies the
+    [10, B] matrix once from a pinned staging buffer; ``process`` makes
+    its batch with ``make_full_batch`` (ten copies).  Also the shares of
+    verdicts and events over the timed batches."""
+    stage = torch.empty((len(PACKED_FIELDS), run.batch),
+                        dtype=torch.int32).pin_memory()
+    ms, event_counts, verdict_counts = [], {}, {}
+    for _ in range(calls):
+        host = run.next_batch()
+        stage.copy_(torch.from_numpy(host))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if packed_path:
+            out = run.step(stage.to(run.device, non_blocking=True))
+        else:
+            cols = {f: host[i] for i, f in enumerate(PACKED_FIELDS)}
+            out = run.dp.process(engine.make_full_batch(
+                **cols, device=run.device), now=run.now)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        verdict, event = out[0], out[1]
+        for name, mask in (("drop", verdict < 0), ("allow", verdict == 0),
+                           ("proxy", verdict > 0)):
+            verdict_counts[name] = verdict_counts.get(name, 0) + \
+                int(mask.sum())
+        codes, counts = torch.unique(event, return_counts=True)
+        for c, n in zip(codes.tolist(), counts.tolist()):
+            key = events.event_name(c)
+            event_counts[key] = event_counts.get(key, 0) + n
+        run.advance()
+    n_pk = sum(verdict_counts.values())
+    return {"entry": "process_packed" if packed_path else "process",
+            "batch": run.batch, "samples": len(ms),
+            "median_batch_ms": float(np.median(ms)),
+            "p99_batch_ms": float(np.percentile(ms, 99)),
+            "max_batch_ms": float(max(ms)),
+            "verdicts_per_s": run.batch / (float(np.median(ms)) / 1e3),
+            "verdict_share": {k: v / n_pk
+                              for k, v in verdict_counts.items()},
+            "event_share": {k: v / n_pk for k, v in event_counts.items()}}
+
+
+def phase_v4(dev) -> int:
+    """The v4 phase; returns the dense kernel's launches during it (the
+    path runs no hand-written kernel)."""
+    t0 = time.perf_counter()
+    state = v4_serving_state(**V4_STATE)
+    emit("v4-state", endpoints=len(state.ep_identity),
+         policy_entries=sum(len(s) for s in state.states),
+         ipcache_prefixes=len(state.prefixes),
+         services=len(state.services),
+         backends=sum(len(s.backends) for s in state.services),
+         backendless_last=len(state.services[-1].backends) == 0,
+         prefilter_cidrs=len(state.prefilter),
+         peer_nodes=len(state.tunnel), ct_slots=V4_CT_SLOTS,
+         ct_probe=V4_CT_PROBE, setup_s=time.perf_counter() - t0)
+
+    dv.dense_verdict.launches = 0
+    t0 = time.perf_counter()
+    parity = v4_parity(state, dev)
+    emit("v4-parity-total", seconds=time.perf_counter() - t0, **parity)
+
+    run = V4Run(V4_BATCH, dev, ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                state=state, n_flows=V4_FLOWS)
+    t0 = time.perf_counter()
+    deleted = 0
+    for _ in range(V4_WARMUP):
+        run.step(torch.as_tensor(run.next_batch(), device=dev))
+        deleted += run.advance()
+    torch.cuda.synchronize()
+    emit("v4-warmup", batches=V4_WARMUP, gc_deleted=deleted,
+         ct_entries=run.dp.ct_entries()[0],
+         ct_occupancy=run.dp.ct_entries()[0] / V4_CT_SLOTS,
+         seconds=time.perf_counter() - t0)
+    sync = v4_sync_check(run)
+    emit("v4-sync", **sync)
+    timed = [v4_timed(run, V4_TIMED["process_packed"], True),
+             v4_timed(run, V4_TIMED["process"], False)]
+    for res in timed:
+        emit("v4-timing", **res)
+    occupancy = run.dp.ct_entries()[0] / V4_CT_SLOTS
+    prof = profile_v4(run, 5)
+    emit("v4-profile", batch=V4_BATCH, **prof)
+    launches = dv.dense_verdict.launches
+    shares = timed[0]["event_share"]
+    for name in ("to-endpoint", "to-overlay", "Policy denied (L3/L4)",
+                 "Prefilter denied"):
+        if not shares.get(name):
+            raise AssertionError(f"v4 step: no packet took {name!r}")
+    emit("v4", ct_occupancy=occupancy,
+         hand_kernel_launches={"dense_verdict": launches},
+         median_batch_ms=timed[0]["median_batch_ms"],
+         p99_batch_ms=timed[0]["p99_batch_ms"],
+         verdicts_per_s=timed[0]["verdicts_per_s"])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -477,6 +732,8 @@ def main() -> int:
         "allow-heavy": {"hash": 200, "dense": 50, "kernel": 100,
                         "plain": 0}}, pair_s, function_pair_s)
 
+    v4_launches = phase_v4(dev)
+
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
                 "ms": res["kernel_ms"], "bound_ms": res["bound_ms"],
@@ -504,6 +761,7 @@ def main() -> int:
         ["segment_verdict_kernel"],
         "shape": {"b": main_b["batch"], "n": main_b["entries"]},
         "grouping_share": main_b["grouping_share"],
+        "v4_path_launches": v4_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -1,0 +1,94 @@
+"""Datapath event codes (drop reasons, trace points) and provenance tiers.
+
+Copy of the constants of ``cilium_tpu/datapath/events.py`` (reference:
+bpf/lib/common.h DROP_* codes, bpf/lib/{drop,trace}.h notifications).
+The batched step emits one event code per packet; with provenance on it
+also emits the decision tier that produced the verdict.
+"""
+
+from __future__ import annotations
+
+# Forwarding outcomes (positive trace points).
+TRACE_TO_LXC = 0        # delivered to local endpoint
+TRACE_TO_PROXY = 1      # redirected to proxy
+TRACE_TO_HOST = 2
+TRACE_TO_STACK = 3
+TRACE_TO_OVERLAY = 4    # encapped to remote node
+ICMP6_NS_REPLY = 5      # answered in-datapath (icmp6.h), v6 only
+ICMP6_ECHO_REPLY = 6
+
+# Drop reasons (negative codes, mirroring DROP_* semantics).
+DROP_POLICY = -130          # common.h DROP_POLICY analog
+DROP_FRAG_NOSUPPORT = -131
+DROP_CT_INVALID_HDR = -132
+DROP_PREFILTER = -133       # XDP prefilter (bpf_xdp.c check_filters)
+DROP_POLICY_L7 = -134
+DROP_INVALID = -135
+DROP_UNKNOWN_TARGET = -136  # icmp6.h ACTION_UNKNOWN_ICMP6_NS analog
+DROP_THREAT = -137          # inline threat scoring (not ported yet)
+
+DROP_NAMES = {
+    DROP_POLICY: "Policy denied (L3/L4)",
+    DROP_FRAG_NOSUPPORT: "Fragmented packet not supported",
+    DROP_CT_INVALID_HDR: "Invalid connection tracking header",
+    DROP_PREFILTER: "Prefilter denied",
+    DROP_POLICY_L7: "Policy denied (L7)",
+    DROP_INVALID: "Invalid packet",
+    DROP_UNKNOWN_TARGET: "Unknown ICMPv6 ND target",
+    DROP_THREAT: "Threat score denied (inline ML)",
+}
+
+TRACE_NAMES = {
+    TRACE_TO_LXC: "to-endpoint",
+    TRACE_TO_PROXY: "to-proxy",
+    TRACE_TO_HOST: "to-host",
+    TRACE_TO_STACK: "to-stack",
+    TRACE_TO_OVERLAY: "to-overlay",
+    ICMP6_NS_REPLY: "icmp6-ns-reply",
+    ICMP6_ECHO_REPLY: "icmp6-echo-reply",
+}
+
+
+def event_name(code: int) -> str:
+    """Human name for any event code (drop reason or trace point)."""
+    return DROP_NAMES.get(code) or TRACE_NAMES.get(code) or \
+        f"code {code}"
+
+
+# Provenance decision tiers: which stage of the step produced the final
+# verdict (the __policy_can_access fallback chain plus the stages that
+# short-circuit around it).
+TIER_NONE = 0            # provenance disabled / not applicable
+TIER_PREFILTER = 1       # XDP prefilter deny
+TIER_CT_ESTABLISHED = 2  # verdict replayed from the CT entry
+TIER_L3_ALLOW = 3        # L3-only key (identity, 0, 0, dir)
+TIER_L4_RULE = 4         # exact or L4-wildcard key, plain allow
+TIER_L7_REDIRECT = 5     # matched key carries a proxy port
+TIER_DENY = 6            # no key matched (policy/fragment drop)
+TIER_LB = 7              # local service tier (ICMPv6 responder, v6 only)
+TIER_L7_FAST_ALLOW = 8   # on-device L7 fast verdicts (not ported yet)
+TIER_L7_FAST_DENY = 9
+TIER_THREAT_DROP = 10    # inline threat scoring (not ported yet)
+TIER_THREAT_RATELIMIT = 11
+TIER_THREAT_REDIRECT = 12
+
+TIER_NAMES = {
+    TIER_NONE: "none",
+    TIER_PREFILTER: "prefilter",
+    TIER_CT_ESTABLISHED: "ct-established",
+    TIER_L3_ALLOW: "l3-allow",
+    TIER_L4_RULE: "l4-rule",
+    TIER_L7_REDIRECT: "l7-redirect",
+    TIER_DENY: "deny",
+    TIER_LB: "lb",
+    TIER_L7_FAST_ALLOW: "l7-fast-allow",
+    TIER_L7_FAST_DENY: "l7-fast-deny",
+    TIER_THREAT_DROP: "threat-drop",
+    TIER_THREAT_RATELIMIT: "threat-ratelimit",
+    TIER_THREAT_REDIRECT: "threat-redirect",
+}
+
+
+def tier_name(code: int) -> str:
+    """Human name for a provenance decision-tier code."""
+    return TIER_NAMES.get(code, f"tier {code}")

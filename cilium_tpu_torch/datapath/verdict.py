@@ -26,6 +26,8 @@ from ..compiler.policy_tables import CompiledPolicy, pack_meta
 from ..device import DeviceLike, resolve_device
 from ..ops.hashtab_ops import batched_lookup
 from .codes import VERDICT_ALLOW, VERDICT_DROP, VERDICT_DROP_FRAG
+from .events import (TIER_DENY, TIER_L3_ALLOW, TIER_L4_RULE,
+                     TIER_L7_REDIRECT)
 
 
 class PacketBatch(NamedTuple):
@@ -43,6 +45,15 @@ class PacketBatch(NamedTuple):
 class Counters(NamedTuple):
     packets: torch.Tensor  # [E*S] int32, wrapping (uint32 bits)
     bytes: torch.Tensor    # [E*S] int32, wrapping (uint32 bits)
+
+
+class Provenance(NamedTuple):
+    """Per-packet verdict provenance (both [B] int32): the flat slot of
+    the matched policymap entry in the stacked [E*S] tables (-1 = no
+    entry decided), and the decision-tier code (``events.TIER_*``)."""
+
+    match_slot: torch.Tensor
+    tier: torch.Tensor
 
 
 def _stage_lookups(key_id, key_meta, value, pkt: PacketBatch,
@@ -67,12 +78,35 @@ def _stage_lookups(key_id, key_meta, value, pkt: PacketBatch,
     return frag, (f1, v1, s1), (f2, v2, s2), (f3, v3, s3)
 
 
+def _policy_provenance(pkt: PacketBatch, f1, v1, s1, f2, s2, f3, v3,
+                       s3) -> Provenance:
+    """Matched slot + decision tier from the stage outcomes.  An
+    exact-stage hit whose query has dport == 0 and proto == 0 is the
+    L3-only key (identical packed words), so it reports as l3-allow."""
+    i32 = lambda x: torch.full((), x, dtype=torch.int32,  # noqa: E731
+                               device=v1.device)
+    exact_is_l3 = (pkt.dport == 0) & (pkt.proto == 0)
+    tier1 = torch.where(v1 > 0, i32(TIER_L7_REDIRECT),
+                        torch.where(exact_is_l3, i32(TIER_L3_ALLOW),
+                                    i32(TIER_L4_RULE)))
+    tier3 = torch.where(v3 > 0, i32(TIER_L7_REDIRECT), i32(TIER_L4_RULE))
+    tier = torch.where(f1, tier1,
+                       torch.where(f2, i32(TIER_L3_ALLOW),
+                                   torch.where(f3, tier3, i32(TIER_DENY))))
+    slot = torch.where(f1 | f2 | f3,
+                       torch.where(f1, s1, torch.where(f2, s2, s3)),
+                       i32(-1))
+    return Provenance(match_slot=slot, tier=tier)
+
+
 def verdict_step(key_id: torch.Tensor, key_meta: torch.Tensor,
                  value: torch.Tensor, counters: Counters,
                  pkt: PacketBatch, max_probe: int,
-                 count_mask: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, Counters]:
-    """Batched verdict; adds into ``counters`` in place and returns it.
+                 count_mask: Optional[torch.Tensor] = None,
+                 with_provenance: bool = False):
+    """Batched verdict; adds into ``counters`` in place and returns
+    (verdict, counters), or (verdict, counters, match_slot, tier) with
+    ``with_provenance``.
 
     ``count_mask`` (bool [B]) excludes rows from the per-entry
     packet/byte counters without changing their verdicts."""
@@ -97,6 +131,9 @@ def verdict_step(key_id: torch.Tensor, key_meta: torch.Tensor,
     inc_b = torch.where(counted, pkt.length.to(torch.int32), i32(0))
     counters.packets.index_add_(0, hit_slot, inc_p)
     counters.bytes.index_add_(0, hit_slot, inc_b)
+    if with_provenance:
+        prov = _policy_provenance(pkt, f1, v1, s1, f2, s2, f3, v3, s3)
+        return verdict, counters, prov.match_slot, prov.tier
     return verdict, counters
 
 

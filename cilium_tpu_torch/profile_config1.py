@@ -1,6 +1,7 @@
-"""Where the config-1 step's device time goes, per engine and state.
+"""Where the config-1 step's, or the v4 step's, device time goes.
 
-    python3 -m cilium_tpu_torch.profile_config1
+    python3 -m cilium_tpu_torch.profile_config1        # config 1
+    python3 -m cilium_tpu_torch.profile_config1 --v4   # the v4 step
 
 Needs one CUDA card.  For BASELINE config 1 (100 rules) and the 10k-rule
 north-star state, both at B = 2**20 packets, and for each engine (hash,
@@ -9,12 +10,16 @@ dense), it warms the step up, records a few steps under
 (ending in a synchronise, profiler on), device busy ms per step (the sum
 of the kernels' own device time), the busy share of the wall time, and
 the kernels with the most device time, with their launches per step.
-The end-to-end numbers are ``chip_smoke.py``'s, taken with the profiler
-off.
+With ``--v4`` it does the same for ``Datapath.process_packed`` on the
+full-width v4 serving state (``workloads.V4Run``) at B = 2**20, after
+warm-up batches that fill the conntrack table; each profiled step
+serves the stream's next batch, already on the card.  The end-to-end
+numbers are ``chip_smoke.py``'s, taken with the profiler off.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -22,10 +27,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from .workloads import Config1Run
+from .workloads import Config1Run, V4Run
 
 STATES = ((100, {"hash": 20, "dense": 20}),
           (10_000, {"hash": 20, "dense": 3}))
+# v4 batches served before a measurement, to fill the conntrack table
+V4_WARMUP = 12
 
 
 def profile_step(step, steps: int, top: int = 8) -> dict:
@@ -52,8 +59,34 @@ def profile_step(step, steps: int, top: int = 8) -> dict:
                      "launches": e.count / steps} for e in ranked[:top]]}
 
 
+def profile_v4(run: V4Run, steps: int, top: int = 12) -> dict:
+    """``profile_step`` over ``steps`` v4 batches of ``run``, each moved
+    to the card before the profiled window; the clock and GC advance
+    between steps, outside it."""
+    batches = [torch.as_tensor(run.next_batch(), device=run.device)
+               for _ in range(steps + 1)]
+
+    def step():
+        run.step(batches.pop())
+        run.advance()
+    return profile_step(step, steps, top)
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--v4", action="store_true",
+                        help="profile the v4 stateful step")
+    args = parser.parse_args()
     dev = torch.device("cuda:0")
+    if args.v4:
+        run = V4Run(1 << 20, dev)
+        for _ in range(V4_WARMUP):
+            run.step(torch.as_tensor(run.next_batch(), device=dev))
+            run.advance()
+        print(json.dumps({"phase": "profile-v4", "batch": 1 << 20,
+                          "ct_entries": run.dp.ct_entries()[0],
+                          **profile_v4(run, 5)}), flush=True)
+        return
     for n_rules, steps in STATES:
         run = Config1Run(n_rules, 1 << 20, dev)
         for engine, step in (("hash", run.hash_step),

@@ -1,4 +1,4 @@
-"""The config-1 workload: a CIDR+port policy and its packet streams.
+"""The workloads: config 1 and the v4 serving state with its traffic.
 
 The port's own copy of ``bench.py:build_config1`` and of the packet
 generator of ``bench.py``'s config-1 run (BASELINE.json configs[0]): the
@@ -6,21 +6,34 @@ same seeds give the same map states, prefixes and packets.  A second
 stream, ``config1_allow_heavy_packets``, sources its packets inside the
 policy's prefixes so that a fifth of them or more are allowed.
 ``Config1Run`` puts one such state on a device behind both engines.
+
+``v4_serving_state`` adds what the stateful v4 step serves beside the
+config-1 policy (services, a prefilter deny list, a tunnel map, endpoint
+identities), and ``v4_serving_packets`` streams batches of connections
+over it: a pool of flows that open, exchange and close, service traffic,
+replies, new flows and denylisted sources.  All of it comes from numpy
+seeds, so the same seeds give the same state and batches on any device.
+``V4Run`` serves that stream through a ``Datapath`` on a device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
 from .compiler.lpm import compile_lpm, parse_prefixes
 from .compiler.policy_tables import compile_endpoints
-from .datapath.pipeline import RawPacketBatch, make_step
+from .datapath import conntrack
+from .datapath.engine import Datapath
+from .datapath.lb import Backend, Service, compile_lb, lb_step
+from .datapath.pipeline import PACKED_FIELDS, RawPacketBatch, make_step
 from .device import DeviceLike, resolve_device
 from .ops.dense_verdict import (compile_dense, compile_dense_lpm,
                                 dense_datapath_step, dense_segments)
+from .ops.lpm_ops import lpm_lookup
 from .policy.mapstate import (EGRESS, PolicyKey, PolicyMapState,
                               PolicyMapStateEntry)
 
@@ -152,3 +165,307 @@ class Config1Run:
             self.dense, self.dense_lpm, self.dense_packets,
             self.dense_bytes, p["endpoint"], p["src_addr"], p["dport"],
             p["proto"], p["direction"], p["length"], segments=self.segments)
+
+
+# ---------------------------------------------------------------------------
+# The v4 serving state and its traffic
+# ---------------------------------------------------------------------------
+
+def _ip(a: int, b: int, c: int, d: int) -> int:
+    return (a << 24) | (b << 16) | (c << 8) | d
+
+
+SERVICE_BASE = _ip(10, 96, 0, 1)    # service VIPs (10.96.0.0/12)
+POOL_CLIENTS = _ip(10, 128, 0, 0)   # pool flows' client pods, one each
+NEW_CLIENTS = _ip(10, 129, 0, 0)    # sources of the uniform new flows
+NODE_BASE = _ip(192, 168, 0, 1)     # tunnel endpoints of the peer nodes
+SERVICE_PORTS = (80, 443, 8080)
+ENDPOINT_IDENTITY_BASE = 60000
+# seconds of traffic a batch, batches between CT garbage collections
+V4_SECONDS_PER_BATCH = 1
+V4_GC_EVERY = 8
+
+
+@dataclass
+class V4ServingState:
+    """What the v4 stateful step serves: the config-1 policy and ipcache
+    (``states``, ``prefixes``), ``services`` in compile order (the last
+    one has no backend), the prefilter's deny CIDRs, the tunnel map
+    (pod CIDR -> node IP) and each endpoint slot's own identity.
+    ``ident_port`` maps each policy identity to its rule's port."""
+
+    states: List[PolicyMapState]
+    prefixes: Dict[str, int]
+    services: List[Service]
+    prefilter: List[str]
+    tunnel: Dict[str, int]
+    ep_identity: List[int]
+    ident_port: Dict[int, int]
+
+    def load(self, dp: Datapath) -> None:
+        """Program a ``Datapath`` with this state.  The services go in
+        as copies: the load balancer assigns their rev-NAT indices."""
+        dp.lb.upsert_services([Service(vip=s.vip, port=s.port,
+                                       proto=s.proto,
+                                       backends=list(s.backends))
+                               for s in self.services])
+        dp.prefilter.insert(self.prefilter)
+        dp.load_tunnel(self.tunnel)
+        for slot, ident in enumerate(self.ep_identity):
+            dp.set_endpoint_identity(slot, ident)
+        dp.load_policy(self.states, revision=1,
+                       ipcache_prefixes=self.prefixes)
+
+
+def _resolve(lpm, addrs: np.ndarray) -> np.ndarray:
+    """Identity (LPM value, -1 on a miss) of each uint32 address, by the
+    port's LPM on the CPU."""
+    put = lambda x: torch.as_tensor(x)  # noqa: E731
+    _, val = lpm_lookup(put(lpm.masks), put(lpm.key_a), put(lpm.key_b),
+                        put(lpm.value), put(lpm.prefix_lens),
+                        put(addrs.astype(np.uint32).view(np.int32)),
+                        lpm.max_probe)
+    return val.numpy()
+
+
+def _inside(rng, nets, pick: np.ndarray) -> np.ndarray:
+    """A uniform address inside each picked prefix (int64)."""
+    start = np.array([net[0] for net in nets], np.int64)
+    span = np.array([1 << (32 - net[2]) for net in nets], np.int64)
+    return start[pick] + rng.integers(0, span[pick])
+
+
+def v4_serving_state(n_rules: int = 10_000, n_endpoints: int = 16,
+                     n_services: int = 10_000, backends: int = 4,
+                     n_prefilter: int = 1000, n_nodes: int = 256,
+                     seed: int = 11) -> V4ServingState:
+    """The v4 serving state at full width by default: the 10k-rule
+    config-1 policy over 16 endpoints; 10,000 services (the per-cluster
+    service count of the Kubernetes scalability thresholds) on ports
+    80/443/8080 with ``backends`` backends each inside the policy's
+    prefixes on their identity's rule port, so DNAT'd flows are allowed,
+    and a last service without backends; ``n_prefilter`` deny CIDRs
+    (/24 and /32) outside the ipcache and the pod ranges; ``n_nodes``
+    peer nodes whose pod CIDRs are /24 prefixes of the policy."""
+    states, prefixes = build_config1(n_rules, n_endpoints)
+    rng = np.random.default_rng(seed)
+    ident_port = {k.identity: k.dest_port for k in states[0]
+                  if k.dest_port}
+    nets = parse_prefixes(prefixes)
+    lpm = compile_lpm(prefixes)
+
+    n_back = (n_services - 1) * backends
+    addrs = _inside(rng, nets, rng.integers(0, len(nets), n_back))
+    ports = [ident_port[int(i)] for i in _resolve(lpm, addrs)]
+    services = []
+    for i in range(n_services):
+        rows = range(i * backends, (i + 1) * backends) \
+            if i < n_services - 1 else ()
+        services.append(Service(
+            vip=SERVICE_BASE + i, port=SERVICE_PORTS[i % 3],
+            backends=[Backend(addr=int(addrs[r]), port=ports[r])
+                      for r in rows]))
+
+    # deny CIDRs: first octet 11..223, outside 10/8 (the pods and
+    # services) and outside every ipcache prefix
+    cand = rng.integers(_ip(11, 0, 0, 0), _ip(224, 0, 0, 0),
+                        4 * n_prefilter + 64)
+    cand = cand[_resolve(lpm, cand) < 0][:n_prefilter]
+    plen = np.where(rng.random(cand.shape[0]) < 0.7, 24, 32)
+    prefilter = []
+    for a, p in zip(cand.tolist(), plen.tolist()):
+        a &= (0xFFFFFFFF << (32 - p)) & 0xFFFFFFFF
+        prefilter.append(f"{a >> 24}.{(a >> 16) & 255}.{(a >> 8) & 255}."
+                         f"{a & 255}/{p}")
+
+    slash24 = [c for c in prefixes if c.endswith("/24")]
+    pods = [slash24[i] for i in rng.permutation(len(slash24))[:n_nodes]]
+    tunnel = {cidr: NODE_BASE + k for k, cidr in enumerate(pods)}
+    return V4ServingState(
+        states=states, prefixes=prefixes, services=services,
+        prefilter=prefilter, tunnel=tunnel,
+        ep_identity=[ENDPOINT_IDENTITY_BASE + e
+                     for e in range(n_endpoints)],
+        ident_port=ident_port)
+
+
+# Shares of a batch (the rest, about 59.5%, are forward egress packets
+# of pool flows).
+V4_SHARES = {"service": 0.25, "reply": 0.10, "new": 0.04,
+             "prefilter": 0.01, "close": 0.005}
+
+
+def v4_serving_packets(state: V4ServingState, batch: int,
+                       n_flows: int = 1 << 16, seed: int = 5
+                       ) -> Iterator[np.ndarray]:
+    """Endless [10, batch] int32 batches (``PACKED_FIELDS`` order) of
+    connections over ``state``.
+
+    A pool of ``n_flows`` flows, one client pod each on endpoint
+    ``j % E``, each with a direct destination (an address of a policy
+    prefix on its identity's rule port; a fifth of them in a peer
+    node's pod CIDR) and a service twin (another source port to one
+    service's VIP; flow 0's to the backend-less one).  A batch holds
+    about 59.5% forward egress packets of pool flows and 25% of their
+    service twins (SYN in a flow's first batch, ACK after), 10% ingress
+    replies of flows opened in earlier batches (half of them from the
+    service backend the LB picked), 4% new flows to uniform addresses
+    and ports (mostly denied), 1% ingress packets sourced inside the
+    prefilter's CIDRs, and 0.5% FIN or RST packets that close both
+    connections of a flow, which sends nothing else in that batch and
+    reopens with new source ports in the next.  Lengths 64-1,499."""
+    rng = np.random.default_rng(seed)
+    n_ep = len(state.ep_identity)
+    nets = parse_prefixes(state.prefixes)
+    tun_nets = parse_prefixes(state.tunnel)
+    lpm = compile_lpm(state.prefixes)
+    lb = compile_lb([Service(vip=s.vip, port=s.port, proto=s.proto,
+                             backends=list(s.backends))
+                     for s in state.services], device="cpu")
+    pf_nets = parse_prefixes({c: 1 for c in state.prefilter})
+
+    flow = np.arange(n_flows, dtype=np.int64)
+    ep = (flow % n_ep).astype(np.int32)
+    client = POOL_CLIENTS + flow
+    remote = rng.random(n_flows) < 0.2
+    dst = np.where(remote,
+                   _inside(rng, tun_nets,
+                           rng.integers(0, len(tun_nets), n_flows)),
+                   _inside(rng, nets, rng.integers(0, len(nets), n_flows)))
+    dst_port = np.array([state.ident_port[int(i)]
+                         for i in _resolve(lpm, dst)], np.int64)
+    svc = rng.integers(0, len(state.services), n_flows)
+    svc[0] = len(state.services) - 1
+    vip = np.array([state.services[i].vip for i in svc], np.int64)
+    vport = np.array([state.services[i].port for i in svc], np.int64)
+    gen = np.zeros(n_flows, np.int64)
+    opened = np.zeros(n_flows, np.int64)   # batch of the flow's SYN
+
+    def sport(j):
+        return 20000 + 2 * (gen[j] % 20000)
+
+    n_closing = int(round(V4_SHARES["close"] * batch / 2))
+    counts = {k: int(round(v * batch)) for k, v in V4_SHARES.items()
+              if k != "close"}
+    t = 0
+    while True:
+        older = np.flatnonzero(opened < t)
+        closing = rng.choice(older, min(n_closing, older.shape[0]),
+                             replace=False)
+        keep = np.ones(n_flows, bool)
+        keep[closing] = False
+        active = np.flatnonzero(keep)
+        answer = np.flatnonzero(keep & (opened < t))
+        cols = {f: [] for f in PACKED_FIELDS if f != "length"}
+
+        def add(endpoint, saddr, daddr, sp, dp, direction, flags,
+                proto=6):
+            m = np.shape(saddr)[0]
+            for f, v in (("endpoint", endpoint), ("saddr", saddr),
+                         ("daddr", daddr), ("sport", sp), ("dport", dp),
+                         ("proto", proto), ("direction", direction),
+                         ("tcp_flags", flags), ("is_fragment", 0)):
+                cols[f].append(np.broadcast_to(
+                    np.asarray(v, np.int64), (m,)))
+
+        def syn_or_ack(j):
+            return np.where(opened[j] == t, conntrack.TCP_SYN,
+                            conntrack.TCP_ACK)
+
+        n_rep = counts["reply"] if answer.shape[0] else 0
+        j = rng.choice(active, batch - 2 * closing.shape[0] - n_rep -
+                       counts["service"] - counts["new"] -
+                       counts["prefilter"])
+        add(ep[j], client[j], dst[j], sport(j), dst_port[j], 1,
+            syn_or_ack(j))
+        j = rng.choice(active, counts["service"])
+        add(ep[j], client[j], vip[j], sport(j) + 1, vport[j], 1,
+            syn_or_ack(j))
+        if n_rep:
+            j = rng.choice(answer, n_rep)
+            via_svc = rng.random(n_rep) < 0.5
+            u32 = lambda x: torch.as_tensor(  # noqa: E731
+                x.astype(np.uint32).view(np.int32))
+            back, bport, _, _ = lb_step(
+                lb.tables, u32(vip[j]), u32(vport[j]),
+                torch.full((n_rep,), 6, dtype=torch.int32),
+                u32(client[j]), u32(sport(j) + 1),
+                max_probe=lb.max_probe)
+            back = back.numpy().view(np.uint32).astype(np.int64)
+            add(ep[j], np.where(via_svc, back, dst[j]), client[j],
+                np.where(via_svc, bport.numpy(), dst_port[j]),
+                np.where(via_svc, sport(j) + 1, sport(j)), 0,
+                conntrack.TCP_ACK)
+        n_new = counts["new"]
+        udp = rng.random(n_new) < 0.2
+        add(rng.integers(0, n_ep, n_new),
+            NEW_CLIENTS + rng.integers(0, 1 << 16, n_new),
+            rng.integers(_ip(1, 0, 0, 0), _ip(224, 0, 0, 0), n_new),
+            rng.integers(1024, 65536, n_new), rng.integers(1, 65536, n_new),
+            1, np.where(udp, 0, conntrack.TCP_SYN), np.where(udp, 17, 6))
+        n_pf = counts["prefilter"]
+        j = rng.choice(active, n_pf)
+        add(ep[j], _inside(rng, pf_nets, rng.integers(0, len(pf_nets),
+                                                      n_pf)),
+            client[j], rng.integers(1024, 65536, n_pf), sport(j), 0,
+            conntrack.TCP_SYN)
+        j = np.concatenate([closing, closing])
+        twin = np.repeat([0, 1], closing.shape[0])
+        add(ep[j], client[j], np.where(twin, vip[j], dst[j]),
+            sport(j) + twin, np.where(twin, vport[j], dst_port[j]), 1,
+            np.where(rng.random(j.shape[0]) < 0.8,
+                     conntrack.TCP_FIN | conntrack.TCP_ACK,
+                     conntrack.TCP_RST))
+        order = rng.permutation(batch)
+        length = rng.integers(64, 1500, batch)
+        out = np.empty((len(PACKED_FIELDS), batch), np.int32)
+        for i, f in enumerate(PACKED_FIELDS):
+            col = length if f == "length" else np.concatenate(cols[f])
+            out[i] = col.astype(np.uint32).view(np.int32)[order]
+        # the closed flows reopen with new source ports next batch
+        gen[closing] += 1
+        opened[closing] = t + 1
+        t += 1
+        yield out
+
+
+V4_T0 = 1_000_000  # the clock of the first batch, seconds
+
+
+class V4Run:
+    """The v4 serving state behind a ``Datapath`` on a device, with its
+    packet stream and clock: batch ``t`` is served at ``V4_T0 + t``
+    seconds, and the CT is garbage-collected every ``V4_GC_EVERY``
+    batches (``advance``).  ``state`` defaults to the full-width
+    ``v4_serving_state()``."""
+
+    def __init__(self, batch: int, device: DeviceLike = None,
+                 ct_slots: int = 1 << 20, ct_probe: int = 8,
+                 state: V4ServingState = None, n_flows: int = 1 << 16,
+                 seed: int = 5):
+        self.device = resolve_device(device)
+        self.state = state if state is not None else v4_serving_state()
+        self.dp = Datapath(ct_slots=ct_slots, ct_probe=ct_probe,
+                           device=self.device)
+        self.state.load(self.dp)
+        self.batch = batch
+        self.stream = v4_serving_packets(self.state, batch, n_flows, seed)
+        self.t = 0
+
+    @property
+    def now(self) -> int:
+        return V4_T0 + self.t * V4_SECONDS_PER_BATCH
+
+    def next_batch(self) -> np.ndarray:
+        """The stream's next [10, B] int32 batch, on the host."""
+        return next(self.stream)
+
+    def step(self, packed: torch.Tensor):
+        """``process_packed`` of a [10, B] batch on the device, now."""
+        return self.dp.process_packed(packed, now=self.now)
+
+    def advance(self) -> int:
+        """Move the clock to the next batch; run the CT GC when it is
+        due and return the entries it deleted (0 otherwise)."""
+        self.t += 1
+        return self.dp.gc(self.now) if self.t % V4_GC_EVERY == 0 else 0
