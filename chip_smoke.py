@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's verdict paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's verdict and serving paths on one NVIDIA
+card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -44,23 +45,37 @@ script exits non-zero:
    through ``Datapath.process_packed`` at the full width of the
    north-star state (``workloads.v4_serving_state``: the 10k-rule policy,
    10,000 services, 1,000 prefilter CIDRs, 256 peer nodes, a 2**20-slot
-   conntrack table).  Parity: the same port on the card and on the CPU,
-   from one seed, 2 batches at B = 2**20 then 8 at B = 2**16 across a GC
-   and a restore of a conntrack snapshot taken mid-run; after every
-   batch verdicts, events, identities, every NAT field, the counters,
-   every CT field (sentinel included) and the provenance are compared
-   bit for bit and the mismatch counts printed.  Then ``process_packed``
-   on batches already on the card under
-   ``torch.cuda.set_sync_debug_mode("error")``, and behind a half-second
-   ``torch.cuda._sleep`` before which it must return (a host read in the
-   step fails the run), timing of ``process_packed`` (one H2D of the [10, B]
-   matrix from a pinned buffer per call) and of ``process`` (ten H2D
-   copies from the host columns) with CUDA events after warm-up batches
-   that fill the table, the table's occupancy, the shares of verdicts and
-   events, and a ``torch.profiler`` breakdown of the step.  No
-   hand-written kernel runs on this path: the dense kernel's launch
-   count, set to 0 before it, is read after it.
-6. the kernels line, the card's name and power limit from nvidia-smi,
+   conntrack table).  Parity, with the daemon's flow table off and then
+   on (4,096 slots, probe 8, the claim on every 4th call): the same port
+   on the card and on the CPU, from one seed, 2 batches at B = 2**20
+   then 8 at B = 2**16 across a GC and a restore of a conntrack snapshot
+   taken mid-run; after every batch verdicts, events, identities, every
+   NAT field, the counters, every CT field (sentinel included), every
+   flow-table lane and the provenance are compared bit for bit and the
+   mismatch counts printed.  Then the no-host-read check
+   (``sync_check``): calls on batches already on the card under
+   ``torch.cuda.set_sync_debug_mode("error")``, and calls behind a
+   half-second ``torch.cuda._sleep``, traced by ``torch.profiler``, that
+   must return before the sleep ends or, where a step has more kernels
+   than the launch queue holds, show no synchronising or copying CUDA
+   runtime call and a kernel launch as what held the host; a control
+   step that reads one verdict back must be flagged.  Timing of
+   ``process_packed`` (one H2D of the [10, B] matrix from a pinned
+   buffer per call) and of ``process`` (ten H2D copies) with CUDA events
+   after warm-up batches that fill the table, the table's occupancy,
+   the shares of verdicts and events, and a ``torch.profiler``
+   breakdown; then, with the flow table on, its occupancy and lost
+   share after warm-up, the no-host-read check over claiming and
+   claim-free calls, timing and profile.  No hand-written kernel runs
+   on this path: the dense kernel's launch count, set to 0 before it,
+   is read after it.
+6. v6: the same for ``Datapath.process6`` over the v6 twin of that state
+   (``workloads.v6_of``: every address embedded in ``fd00::/96``, the
+   ICMPv6/NDP responder answering for the node's router, 1% ICMPv6
+   traffic): parity with flows and provenance on, the tables' bytes on
+   the card, and the no-host-read check, timing and profile with the
+   flow table off and on.
+7. the kernels line, the card's name and power limit from nvidia-smi,
    and a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -75,7 +90,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from cilium_tpu_torch import kernels, sass_mix
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, oracle_lpm_u32,
@@ -84,15 +99,16 @@ from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
 from cilium_tpu_torch.datapath import conntrack, engine, events
 from cilium_tpu_torch.datapath.codes import VERDICT_DROP, WORLD_IDENTITY
 from cilium_tpu_torch.datapath.pipeline import PACKED_FIELDS
-from cilium_tpu_torch.device import cuda_ms, probe
+from cilium_tpu_torch.device import cuda_ms, nvidia_smi, probe
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
-from cilium_tpu_torch.profile_config1 import V4_WARMUP, profile_v4
+from cilium_tpu_torch.profile_config1 import V4_WARMUP, profile_run
 from cilium_tpu_torch.workloads import (TRAFFICS, V4_T0,
-                                        Config1Run, V4Run,
+                                        Config1Run, V4Run, V6Run, unpack6,
                                         v4_serving_packets,
-                                        v4_serving_state)
+                                        v4_serving_state, v6_of,
+                                        v6_serving_packets)
 
 BATCH = 1 << 20
 ORACLE_SAMPLE = 4096
@@ -460,7 +476,7 @@ def run_state(label, n_rules, dev, batch, oracle_sample, iters, pair_s,
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the v4 stateful step
+# phases 5 and 6: the v4 and v6 stateful steps
 # ---------------------------------------------------------------------------
 
 V4_STATE = {}           # v4_serving_state() arguments: full width
@@ -469,25 +485,48 @@ V4_SMALL = 1 << 16
 V4_FLOWS = 1 << 16
 V4_CT_SLOTS = 1 << 20
 V4_CT_PROBE = 8
-V4_TIMED = {"process_packed": 60, "process": 30}
+V4_TIMED = {"process_packed": 40, "process": 20, "flows": 30}
+V6_TIMED = {"off": 30, "flows": 30}
+# the daemon's flow table (DaemonConfig hubble_flow_slots / probe) and
+# the engine's claim stripe
+FLOW_SLOTS = 1 << 12
+FLOW_PROBE = 8
+FLOW_CLAIM_EVERY = 4
+# batches served with flows on before their timing, to fill the table
+FLOW_WARMUP = 8
 # about half a second of torch.cuda._sleep at the H100's 1.98 GHz
 SLEEP_CYCLES = 1_000_000_000
 
 
-def v4_mismatches(outs_g, outs_c, gpu, cpu) -> dict:
+def enable_flows(dp) -> None:
+    dp.enable_flow_aggregation(slots=FLOW_SLOTS, max_probe=FLOW_PROBE,
+                               claim_every=FLOW_CLAIM_EVERY)
+
+
+def mismatches(outs_g, outs_c, gpu, cpu, family6: bool) -> dict:
     """Elements that differ between the card's and the CPU's step, per
     output: verdict, event, identity, every NAT field, both counters,
-    every CT field (sentinel included, the discard slot left out) and
-    the provenance slot and tier."""
+    every field of the family's CT (sentinel included, the discard slot
+    left out), every lane of the flow table when it is on, and the
+    provenance slot and tier."""
     pairs = [(name, g, c) for name, g, c in
              zip(("verdict", "event", "identity"), outs_g[:3], outs_c[:3])]
     pairs += [(f"nat.{f}", getattr(outs_g[3], f), getattr(outs_c[3], f))
               for f in outs_g[3]._fields]
     pairs += [(f"counters.{f}", getattr(gpu.counters, f),
                getattr(cpu.counters, f)) for f in ("packets", "bytes")]
-    n = gpu.ct.slots + 1
-    pairs += [(f"ct.{f}", gpu.ct.state[i, :n], cpu.ct.state[i, :n])
+    ct_g, ct_c = (gpu.ct6, cpu.ct6) if family6 else (gpu.ct, cpu.ct)
+    n = ct_g.slots + 1
+    ct_name = "ct6" if family6 else "ct"
+    pairs += [(f"{ct_name}.{f}", ct_g.state[i, :n], ct_c.state[i, :n])
               for i, f in enumerate(conntrack.FIELDS)]
+    if gpu.flows is not None:
+        for lane, f in enumerate(("src", "dst", "meta", "last_seen")):
+            pairs.append((f"flows.{f}", gpu.flows.state.keys[:, lane],
+                          cpu.flows.state.keys[:, lane]))
+        for lane, f in enumerate(("packets", "bytes")):
+            pairs.append((f"flows.{f}", gpu.flows.state.counters[:, lane],
+                          cpu.flows.state.counters[:, lane]))
     if gpu.provenance_enabled:
         pairs += [(f"provenance.{f}", getattr(gpu.last_provenance, f),
                    getattr(cpu.last_provenance, f))
@@ -495,31 +534,36 @@ def v4_mismatches(outs_g, outs_c, gpu, cpu) -> dict:
     return {name: int((g.cpu() != c).sum()) for name, g, c in pairs}
 
 
-def v4_parity(state, dev) -> dict:
-    """The port on the card and on the CPU, from one seed and one state:
-    2 batches at B = 2**20, then 8 at B = 2**16 after a 60 s pause (so
-    SYN-only and closed entries have expired), with a snapshot after the
-    5th batch, a GC after the 6th and, after the 8th, a restore of that
-    snapshot into both.  Raises on any mismatch."""
+def serve_parity(label, dev, load, step, streams, family6: bool,
+                 flows: bool) -> dict:
+    """The port on the card and on the CPU, from one seed and one state
+    (``load(dp)``), provenance on, the flow table on with ``flows``: 2
+    batches at B = 2**20 from ``streams[0]``, then 8 at B = 2**16 from
+    ``streams[1]`` after a 60 s pause (so SYN-only and closed entries
+    have expired), with a CT snapshot after the 5th batch, a GC after
+    the 6th and, after the 8th, a restore of that snapshot into both.
+    ``step(dp, batch, now)`` serves one batch.  Raises on any
+    mismatch."""
     pair = []
     for where in (dev, torch.device("cpu")):
         dp = engine.Datapath(ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
                              device=where)
-        state.load(dp)
+        load(dp)
         dp.enable_provenance()
+        if flows:
+            enable_flows(dp)
         pair.append(dp)
     gpu, cpu = pair
     total = {}
-    big = v4_serving_packets(state, V4_BATCH, n_flows=V4_FLOWS, seed=5)
-    small = v4_serving_packets(state, V4_SMALL, n_flows=V4_FLOWS // 16,
-                               seed=6)
     snapshot = None
+    fam = 1 if family6 else 0
     for k in range(10):
-        b, stream = (V4_BATCH, big) if k < 2 else (V4_SMALL, small)
+        b = V4_BATCH if k < 2 else V4_SMALL
         now = V4_T0 + k if k < 2 else V4_T0 + 60 + k
-        host = torch.as_tensor(next(stream))
-        outs_g = gpu.process_packed(host.to(dev), now=now)
-        outs_c = cpu.process_packed(host, now=now)
+        host = torch.as_tensor(next(streams[0] if k < 2 else streams[1]))
+        claiming = flows and gpu._flow_tick % FLOW_CLAIM_EVERY == 0
+        outs_g = step(gpu, host.to(dev), now)
+        outs_c = step(cpu, host, now)
         torch.cuda.synchronize()
         extra = {}
         if k == 4:
@@ -529,32 +573,80 @@ def v4_parity(state, dev) -> dict:
         if k == 7:
             extra["restored"] = [gpu.restore_ct_snapshots(*snapshot),
                                  cpu.restore_ct_snapshots(*snapshot)]
-        mism = v4_mismatches(outs_g, outs_c, gpu, cpu)
+        mism = mismatches(outs_g, outs_c, gpu, cpu, family6)
         for name, (g, c) in extra.items():
             mism[name] = int(g != c)
         for name, bad in mism.items():
             total[name] = total.get(name, 0) + bad
-        emit("v4-parity", batch_index=k, b=b, now=now,
-             mismatches=sum(mism.values()),
-             ct_entries=gpu.ct_entries()[0], **extra,
+        if flows:
+            extra["flows"] = gpu.flow_stats()
+            extra["claiming"] = claiming
+        emit(f"{label}-parity", batch_index=k, b=b, now=now,
+             flows_on=flows, mismatches=sum(mism.values()),
+             ct_entries=gpu.ct_entries()[fam], **extra,
              nonzero={n: v for n, v in mism.items() if v})
         if any(mism.values()):
-            raise AssertionError(f"v4 step: card != CPU at batch {k}: "
+            raise AssertionError(f"{label} step: card != CPU at batch {k}: "
                                  f"{ {n: v for n, v in mism.items() if v} }")
-    return {"batches": 10, "mismatches": total}
+    return {"batches": 10, "flows_on": flows, "mismatches": total}
 
 
-def v4_sync_check(run: V4Run) -> dict:
-    """No host read inside ``process_packed``, shown two ways on batches
-    already on the card, provenance on and off:
+# CUDA runtime calls that make the host wait for the device, or copy
+# between host and device: none may run inside a step
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync",
+              "cudaMemcpy2D", "cudaMemcpy2DAsync")
+
+
+def behind_sleep(run, batch) -> dict:
+    """One ``run.step`` behind a ``torch.cuda._sleep`` that holds the
+    stream for about half a second, traced by ``torch.profiler``: the
+    host time of the call and the CUDA runtime calls made inside it.  A
+    host read would show as a synchronise or copy call that lasts until
+    the sleep ends; a step of more kernels than the launch queue holds
+    blocks instead in a kernel launch, which reads nothing."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        with record_function("serving-step"):
+            run.step(batch)
+        host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    evs = prof.events()
+    span = [e for e in evs if e.name == "serving-step"][0].time_range
+    runtime = [e for e in evs if e.device_type == DeviceType.CPU
+               and e.name.startswith("cuda")
+               and span.start <= e.time_range.start <= span.end]
+    counts: dict = {}
+    for e in runtime:
+        counts[e.name] = counts.get(e.name, 0) + 1
+    longest = max(runtime, key=lambda e: e.time_range.elapsed_us(),
+                  default=None)
+    return {"host_ms": host_ms,
+            "host_waits": {n: c for n, c in counts.items()
+                           if n in HOST_WAITS},
+            "launches": counts.get("cudaLaunchKernel", 0),
+            "longest_call": None if longest is None else longest.name,
+            "longest_call_ms": 0.0 if longest is None
+            else longest.time_range.elapsed_us() / 1e3}
+
+
+def sync_check(run, calls: int) -> dict:
+    """No host read inside ``run.step``, shown two ways on batches
+    already on the card, provenance on and off in turn; with the flow
+    table on, ``calls`` >= the claim stripe puts a claiming and a
+    claim-free call in each half:
 
     - under ``set_sync_debug_mode("error")`` every synchronising call
       PyTorch detects raises;
-    - behind a ``torch.cuda._sleep`` that holds the stream for about
-      half a second, the call must return on the host before the sleep
-      ends: a read anywhere in the step would wait for it."""
+    - behind a ``torch.cuda._sleep`` (``behind_sleep``) the call must
+      return on the host before the sleep ends, or, where the step has
+      more kernels than the launch queue holds, the profiler must show
+      that it made no synchronising or copying runtime call and that
+      what held the host was a kernel launch."""
     batches = [torch.as_tensor(run.next_batch(), device=run.device)
-               for _ in range(4)]
+               for _ in range(2 * calls)]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -562,51 +654,93 @@ def v4_sync_check(run: V4Run) -> dict:
     end.record()
     end.synchronize()
     sleep_ms = start.elapsed_time(end)
-    host_ms = []
-    for i, prov in enumerate((True, False)):
-        (run.dp.enable_provenance if prov else run.dp.disable_provenance)()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            run.step(batches[i])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    dp = run.dp
+    claiming = []
+    probes = []
+    for i in range(2 * calls):
+        (dp.enable_provenance if i % 2 == 0 else dp.disable_provenance)()
+        if dp.flows is not None:
+            claiming.append(dp._flow_tick % FLOW_CLAIM_EVERY == 0)
+        if i < calls:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run.step(batches[i])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            probe = behind_sleep(run, batches[i])
+            probe["returned_before_sleep_ended"] = \
+                probe["host_ms"] < sleep_ms
+            probe["held_by_launch_queue"] = \
+                not probe["host_waits"] and probe["launches"] > 0 and \
+                probe["longest_call"] == "cudaLaunchKernel"
+            probes.append(probe)
         torch.cuda.synchronize()
         run.advance()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        t0 = time.perf_counter()
-        run.step(batches[2 + i])
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        run.advance()
-    if max(host_ms) >= sleep_ms:
-        raise AssertionError(f"process_packed waited for the card: host "
-                             f"{host_ms} ms behind a {sleep_ms} ms sleep")
-    return {"calls": 4, "sync_debug_mode": "error", "raised": False,
-            "sleep_ms": sleep_ms, "host_ms_behind_sleep": host_ms}
+    dp.enable_provenance()
+    bad = [p for p in probes if p["host_waits"] or not (
+        p["returned_before_sleep_ended"] or p["held_by_launch_queue"])]
+    if bad:
+        raise AssertionError(f"the step may read the card: {bad} behind a "
+                             f"{sleep_ms} ms sleep")
+    if dp.flows is not None and not (any(claiming[:calls]) and
+                                     any(claiming[calls:])):
+        raise AssertionError(f"no claiming call in a half: {claiming}")
+    return {"calls": 2 * calls, "sync_debug_mode": "error",
+            "raised": False, "flows_on": dp.flows is not None,
+            "claiming": claiming, "sleep_ms": sleep_ms,
+            "host_ms_behind_sleep": [p["host_ms"] for p in probes],
+            "behind_sleep": probes}
 
 
-def v4_timed(run: V4Run, calls: int, packed_path: bool) -> dict:
+class _ReadsBack:
+    """``run`` whose step also reads a verdict back on the host: the
+    control that ``behind_sleep`` must flag."""
+
+    def __init__(self, run):
+        self.run = run
+
+    def step(self, batch):
+        out = self.run.step(batch)
+        return int(out[0][0])
+
+
+def sleep_control(run) -> dict:
+    """``behind_sleep`` on a step followed by a host read of one
+    verdict: it must report the read (so its silence on the real steps
+    means something on this machine)."""
+    batch = torch.as_tensor(run.next_batch(), device=run.device)
+    probe = behind_sleep(_ReadsBack(run), batch)
+    run.advance()
+    if not probe["host_waits"]:
+        raise AssertionError(f"the sleep probe missed a host read: {probe}")
+    return probe
+
+
+def serve_timed(run, calls: int, entry: str) -> dict:
     """Per-batch device time of ``calls`` fresh batches, CUDA events
     around the host-to-device copy and the step (clock, GC and the
-    next batch's generation outside): ``process_packed`` copies the
-    [10, B] matrix once from a pinned staging buffer; ``process`` makes
-    its batch with ``make_full_batch`` (ten copies).  Also the shares of
-    verdicts and events over the timed batches."""
-    stage = torch.empty((len(PACKED_FIELDS), run.batch),
-                        dtype=torch.int32).pin_memory()
+    next batch's generation outside): ``process_packed`` and
+    ``process6`` copy their batch matrix once from a pinned staging
+    buffer; ``process`` makes its batch with ``make_full_batch`` (ten
+    copies).  Also the shares of verdicts and events over the timed
+    batches."""
+    stage = None
     ms, event_counts, verdict_counts = [], {}, {}
     for _ in range(calls):
         host = run.next_batch()
+        if stage is None:
+            stage = torch.empty(host.shape, dtype=torch.int32).pin_memory()
         stage.copy_(torch.from_numpy(host))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        if packed_path:
-            out = run.step(stage.to(run.device, non_blocking=True))
-        else:
+        if entry == "process":
             cols = {f: host[i] for i, f in enumerate(PACKED_FIELDS)}
             out = run.dp.process(engine.make_full_batch(
                 **cols, device=run.device), now=run.now)
+        else:
+            out = run.step(stage.to(run.device, non_blocking=True))
         end.record()
         end.synchronize()
         ms.append(start.elapsed_time(end))
@@ -621,7 +755,7 @@ def v4_timed(run: V4Run, calls: int, packed_path: bool) -> dict:
             event_counts[key] = event_counts.get(key, 0) + n
         run.advance()
     n_pk = sum(verdict_counts.values())
-    return {"entry": "process_packed" if packed_path else "process",
+    return {"entry": entry, "flows_on": run.dp.flows is not None,
             "batch": run.batch, "samples": len(ms),
             "median_batch_ms": float(np.median(ms)),
             "p99_batch_ms": float(np.percentile(ms, 99)),
@@ -629,12 +763,53 @@ def v4_timed(run: V4Run, calls: int, packed_path: bool) -> dict:
             "verdicts_per_s": run.batch / (float(np.median(ms)) / 1e3),
             "verdict_share": {k: v / n_pk
                               for k, v in verdict_counts.items()},
-            "event_share": {k: v / n_pk for k, v in event_counts.items()}}
+            "event_share": {k: v / n_pk for k, v in event_counts.items()},
+            "name_power_limit": nvidia_smi("name,power.limit")}
 
 
-def phase_v4(dev) -> int:
-    """The v4 phase; returns the dense kernel's launches during it (the
-    path runs no hand-written kernel)."""
+def warm_up(run, batches: int) -> int:
+    """Serve ``batches`` batches; returns the CT entries GC deleted."""
+    deleted = 0
+    for _ in range(batches):
+        run.step(torch.as_tensor(run.next_batch(), device=run.device))
+        deleted += run.advance()
+    torch.cuda.synchronize()
+    return deleted
+
+
+def flows_leg(run, label: str) -> dict:
+    """Turn the daemon's flow table on, serve ``FLOW_WARMUP`` batches,
+    and report its occupancy and lost share."""
+    enable_flows(run.dp)
+    t0 = time.perf_counter()
+    warm_up(run, FLOW_WARMUP)
+    stats = run.dp.flow_stats()
+    res = {"batches": FLOW_WARMUP, **stats,
+           "occupancy": stats["occupied"] / stats["slots"],
+           "lost_share": stats["lost"] / max(1, stats["updates"]),
+           "seconds": time.perf_counter() - t0}
+    emit(f"{label}-flows", **res)
+    return res
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor in a (nested) NamedTuple of tensors."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, tuple):
+        return sum(tensor_bytes(x) for x in obj)
+    return 0
+
+
+def check_shares(label, shares, names) -> None:
+    for name in names:
+        if not shares.get(name):
+            raise AssertionError(f"{label} step: no packet took {name!r}")
+
+
+def phase_v4(dev):
+    """The v4 phase; returns (the dense kernel's launches during it, the
+    state).  The path runs no hand-written kernel."""
     t0 = time.perf_counter()
     state = v4_serving_state(**V4_STATE)
     emit("v4-state", endpoints=len(state.ep_identity),
@@ -648,42 +823,135 @@ def phase_v4(dev) -> int:
          ct_probe=V4_CT_PROBE, setup_s=time.perf_counter() - t0)
 
     dv.dense_verdict.launches = 0
-    t0 = time.perf_counter()
-    parity = v4_parity(state, dev)
-    emit("v4-parity-total", seconds=time.perf_counter() - t0, **parity)
+    for flows in (False, True):
+        t0 = time.perf_counter()
+        parity = serve_parity(
+            "v4", dev, state.load,
+            lambda dp, x, now: dp.process_packed(x, now=now),
+            (v4_serving_packets(state, V4_BATCH, n_flows=V4_FLOWS, seed=5),
+             v4_serving_packets(state, V4_SMALL, n_flows=V4_FLOWS // 16,
+                                seed=6)), family6=False, flows=flows)
+        emit("v4-parity-total", seconds=time.perf_counter() - t0, **parity)
 
     run = V4Run(V4_BATCH, dev, ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
                 state=state, n_flows=V4_FLOWS)
     t0 = time.perf_counter()
-    deleted = 0
-    for _ in range(V4_WARMUP):
-        run.step(torch.as_tensor(run.next_batch(), device=dev))
-        deleted += run.advance()
-    torch.cuda.synchronize()
+    deleted = warm_up(run, V4_WARMUP)
     emit("v4-warmup", batches=V4_WARMUP, gc_deleted=deleted,
          ct_entries=run.dp.ct_entries()[0],
          ct_occupancy=run.dp.ct_entries()[0] / V4_CT_SLOTS,
          seconds=time.perf_counter() - t0)
-    sync = v4_sync_check(run)
-    emit("v4-sync", **sync)
-    timed = [v4_timed(run, V4_TIMED["process_packed"], True),
-             v4_timed(run, V4_TIMED["process"], False)]
+    emit("v4-sync", **sync_check(run, 2))
+    emit("v4-sync-control", **sleep_control(run))
+    timed = [serve_timed(run, V4_TIMED["process_packed"], "process_packed"),
+             serve_timed(run, V4_TIMED["process"], "process")]
     for res in timed:
         emit("v4-timing", **res)
     occupancy = run.dp.ct_entries()[0] / V4_CT_SLOTS
-    prof = profile_v4(run, 5)
-    emit("v4-profile", batch=V4_BATCH, **prof)
+    prof = profile_run(run, 5)
+    emit("v4-profile", batch=V4_BATCH, flows_on=False, **prof)
+
+    flows = flows_leg(run, "v4")
+    emit("v4-sync", **sync_check(run, FLOW_CLAIM_EVERY))
+    timed_f = serve_timed(run, V4_TIMED["flows"], "process_packed")
+    emit("v4-timing", **timed_f)
+    prof_f = profile_run(run, 4)
+    emit("v4-profile", batch=V4_BATCH, flows_on=True, **prof_f,
+         flows_busy_ms=prof_f["busy_ms"] - prof["busy_ms"])
     launches = dv.dense_verdict.launches
-    shares = timed[0]["event_share"]
-    for name in ("to-endpoint", "to-overlay", "Policy denied (L3/L4)",
-                 "Prefilter denied"):
-        if not shares.get(name):
-            raise AssertionError(f"v4 step: no packet took {name!r}")
+    check_shares("v4", timed[0]["event_share"],
+                 ("to-endpoint", "to-overlay", "Policy denied (L3/L4)",
+                  "Prefilter denied"))
     emit("v4", ct_occupancy=occupancy,
          hand_kernel_launches={"dense_verdict": launches},
          median_batch_ms=timed[0]["median_batch_ms"],
          p99_batch_ms=timed[0]["p99_batch_ms"],
-         verdicts_per_s=timed[0]["verdicts_per_s"])
+         verdicts_per_s=timed[0]["verdicts_per_s"],
+         flows_median_batch_ms=timed_f["median_batch_ms"],
+         flows_verdicts_per_s=timed_f["verdicts_per_s"],
+         flow_occupancy=flows["occupancy"],
+         flow_lost_share=flows["lost_share"])
+    return launches, state
+
+
+def phase_v6(dev, state4) -> int:
+    """The v6 phase: ``Datapath.process6`` over the v6 twin of the v4
+    state; returns the dense kernel's launches during it."""
+    t0 = time.perf_counter()
+    state = v6_of(state4)
+    embed_s = time.perf_counter() - t0
+
+    dv.dense_verdict.launches = 0
+    t0 = time.perf_counter()
+    parity = serve_parity(
+        "v6", dev, state.load,
+        lambda dp, x, now: dp.process6(unpack6(x), now=now),
+        (v6_serving_packets(state, V4_BATCH, n_flows=V4_FLOWS, seed=5),
+         v6_serving_packets(state, V4_SMALL, n_flows=V4_FLOWS // 16,
+                            seed=6)), family6=True, flows=True)
+    emit("v6-parity-total", seconds=time.perf_counter() - t0, **parity)
+
+    t0 = time.perf_counter()
+    run = V6Run(V4_BATCH, dev, ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                state=state, n_flows=V4_FLOWS)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dp = run.dp
+    t6 = dp._tables6
+    emit("v6-state", endpoints=len(state4.ep_identity),
+         policy_entries=sum(len(s) for s in state4.states),
+         ipcache6_prefixes=len(state.prefixes6),
+         ipcache6_lengths=int(t6.ipcache6.kb.shape[0]),
+         ipcache6_slots=int(t6.ipcache6.kb.shape[1]),
+         ipcache6_probe=dp._statics6["lpm6_probe"],
+         services6=len(state.services6),
+         backends6=sum(len(s.backends) for s in state.services6),
+         backendless_last=len(state.services6[-1].backends) == 0,
+         lb6_slots=int(t6.lb6.svc_kb.shape[0]),
+         lb6_probe=dp._statics6["lb6_probe"],
+         prefilter6_cidrs=len(state.prefilter6),
+         prefilter6_lengths=int(t6.pf6.kb.shape[0]),
+         router6=state.router6, ct6_slots=V4_CT_SLOTS,
+         ct6_probe=V4_CT_PROBE,
+         table_bytes={"v6_tables": tensor_bytes(t6),
+                      "ct6": tensor_bytes(dp.ct6.state),
+                      "counters": tensor_bytes(dp._counters)},
+         embed_s=embed_s, load_s=load_s)
+
+    t0 = time.perf_counter()
+    deleted = warm_up(run, V4_WARMUP)
+    emit("v6-warmup", batches=V4_WARMUP, gc_deleted=deleted,
+         ct6_entries=dp.ct_entries()[1],
+         ct6_occupancy=dp.ct_entries()[1] / V4_CT_SLOTS,
+         seconds=time.perf_counter() - t0)
+    emit("v6-sync", **sync_check(run, 2))
+    timed = serve_timed(run, V6_TIMED["off"], "process6")
+    emit("v6-timing", **timed)
+    prof = profile_run(run, 5)
+    emit("v6-profile", batch=V4_BATCH, flows_on=False, **prof)
+
+    flows = flows_leg(run, "v6")
+    emit("v6-sync", **sync_check(run, FLOW_CLAIM_EVERY))
+    timed_f = serve_timed(run, V6_TIMED["flows"], "process6")
+    emit("v6-timing", **timed_f)
+    prof_f = profile_run(run, 4)
+    emit("v6-profile", batch=V4_BATCH, flows_on=True, **prof_f,
+         flows_busy_ms=prof_f["busy_ms"] - prof["busy_ms"])
+    launches = dv.dense_verdict.launches
+    check_shares("v6", timed["event_share"],
+                 ("to-endpoint", "Policy denied (L3/L4)",
+                  "Prefilter denied", "icmp6-ns-reply", "icmp6-echo-reply",
+                  "Unknown ICMPv6 ND target"))
+    emit("v6", ct6_occupancy=dp.ct_entries()[1] / V4_CT_SLOTS,
+         hand_kernel_launches={"dense_verdict": launches},
+         median_batch_ms=timed["median_batch_ms"],
+         p99_batch_ms=timed["p99_batch_ms"],
+         verdicts_per_s=timed["verdicts_per_s"],
+         flows_median_batch_ms=timed_f["median_batch_ms"],
+         flows_p99_batch_ms=timed_f["p99_batch_ms"],
+         flows_verdicts_per_s=timed_f["verdicts_per_s"],
+         flow_occupancy=flows["occupancy"],
+         flow_lost_share=flows["lost_share"])
     return launches
 
 
@@ -732,7 +1000,8 @@ def main() -> int:
         "allow-heavy": {"hash": 200, "dense": 50, "kernel": 100,
                         "plain": 0}}, pair_s, function_pair_s)
 
-    v4_launches = phase_v4(dev)
+    v4_launches, state4 = phase_v4(dev)
+    v6_launches = phase_v6(dev, state4)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -762,6 +1031,7 @@ def main() -> int:
         "shape": {"b": main_b["batch"], "n": main_b["entries"]},
         "grouping_share": main_b["grouping_share"],
         "v4_path_launches": v4_launches,
+        "v6_path_launches": v6_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -2,24 +2,27 @@
 
 The reference keeps its state as JAX arrays.  Its caller hands each
 structure over as ``{field: np.asarray(leaf)}`` (NamedTuple field names
-of ``DatapathTables``, ``Counters``, ``DenseTables``, ``DenseLPM``) and
-gets the port's structures on ``device``.  Leaves must be 32-bit
-integers; uint32 leaves (the counters) become int32 views of the same
-bits.  The engine's packed counters ([2, E*S] uint32) and conntrack
-snapshots (the per-field npz layout) have their own hand-overs.
+of ``DatapathTables``, ``Counters``, ``DenseTables``, ``DenseLPM``,
+``LPM6Tables``, ``LB6Tables``) and gets the port's structures on
+``device``.  Leaves must be 32-bit integers; uint32 leaves (the
+counters) become int32 views of the same bits.  The engine's packed
+counters ([2, E*S] uint32), conntrack snapshots (the per-field npz
+layout) and the Hubble flow table have their own hand-overs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Type
+from typing import Dict, NamedTuple, Optional, Tuple, Type
 
 import numpy as np
 import torch
 
 from .datapath.conntrack import ConntrackTable
-from .datapath.pipeline import DatapathTables
+from .datapath.lb import LB6Tables
+from .datapath.pipeline import DatapathTables, LPM6Tables
 from .datapath.verdict import Counters
 from .device import DeviceLike, resolve_device
+from .hubble.aggregation import FlowState
 from .ops.dense_verdict import DenseLPM, DenseTables
 
 Leaves = Optional[Dict[str, np.ndarray]]
@@ -34,6 +37,8 @@ class PortState(NamedTuple):
     dense_lpm: Optional[DenseLPM]
     policy_probe: int
     lpm_probe: int
+    lpm6: Optional[LPM6Tables] = None
+    lb6: Optional[LB6Tables] = None
 
 
 def _to_port(cls: Type[NamedTuple], leaves: Leaves, dev: torch.device):
@@ -54,17 +59,21 @@ def _to_port(cls: Type[NamedTuple], leaves: Leaves, dev: torch.device):
 
 def from_jax_arrays(*, tables: Leaves = None, counters: Leaves = None,
                     dense: Leaves = None, dense_lpm: Leaves = None,
+                    lpm6: Leaves = None, lb6: Leaves = None,
                     policy_probe: int = 1, lpm_probe: int = 1,
                     device: DeviceLike = None) -> PortState:
     """Numpy leaves of the reference's state -> the port's tables on
     ``device``.  ``policy_probe``/``lpm_probe`` are the ``max_probe``
-    of the compiled policy and LPM that the hash step needs."""
+    of the compiled policy and LPM that the hash step needs; ``lpm6``
+    and ``lb6`` take a v6 LPM's and the lb6 tables' leaves."""
     dev = resolve_device(device)
     return PortState(tables=_to_port(DatapathTables, tables, dev),
                      counters=_to_port(Counters, counters, dev),
                      dense=_to_port(DenseTables, dense, dev),
                      dense_lpm=_to_port(DenseLPM, dense_lpm, dev),
-                     policy_probe=policy_probe, lpm_probe=lpm_probe)
+                     policy_probe=policy_probe, lpm_probe=lpm_probe,
+                     lpm6=_to_port(LPM6Tables, lpm6, dev),
+                     lb6=_to_port(LB6Tables, lb6, dev))
 
 
 def counters_from_pack(pack: np.ndarray, device: DeviceLike = None
@@ -91,3 +100,29 @@ def conntrack_from_snapshot(arrays: Dict[str, np.ndarray],
                            max_probe=max_probe, device=device)
     table.restore_snapshot(arrays)
     return table
+
+
+def flows_from_jax(keys: np.ndarray, counters: np.ndarray,
+                   device: DeviceLike = None) -> FlowState:
+    """The reference's ``FlowState`` (keys [N+2, 4] int32, counters
+    [N+1, 2] uint32, as numpy arrays) -> the port's on ``device``."""
+    keys = np.ascontiguousarray(keys)
+    counters = np.ascontiguousarray(counters)
+    n = keys.shape[0] - 2
+    if keys.shape != (n + 2, 4) or counters.shape != (n + 1, 2) or \
+            keys.dtype != np.int32 or \
+            counters.dtype not in (np.int32, np.uint32):
+        raise ValueError(f"expected keys [N+2, 4] int32 and counters "
+                         f"[N+1, 2] 32-bit, got {keys.dtype} {keys.shape}"
+                         f" and {counters.dtype} {counters.shape}")
+    dev = resolve_device(device)
+    return FlowState(keys=torch.as_tensor(keys.copy(), device=dev),
+                     counters=torch.as_tensor(
+                         counters.view(np.int32).copy(), device=dev))
+
+
+def flows_to_jax(state: FlowState) -> Tuple[np.ndarray, np.ndarray]:
+    """The port's ``FlowState`` -> (keys int32, counters uint32) numpy
+    arrays in the reference's layout."""
+    return (state.keys.cpu().numpy().copy(),
+            state.counters.cpu().numpy().view(np.uint32).copy())

@@ -1,14 +1,16 @@
-"""The v4 datapath engine: host orchestrator over the device tables.
+"""The datapath engine: host orchestrator over the device tables.
 
-Port of the v4 surface of ``cilium_tpu/datapath/engine.py``: one
-generation of every device table (policy, ipcache LPM, LB, prefilter,
-tunnel map) plus the mutable conntrack table and counters, behind
-``process`` (a ``FullPacketBatch``) and ``process_packed`` (one [10, B]
-matrix).  Swap-on-regenerate: ``load_policy`` builds a new table
-generation while conntrack and counters survive when the shapes allow
-(the analog of pinned BPF maps surviving an agent restart).  The step
-runs eagerly; nothing in it reads a device value on the host, so a call
-returns while the card still works on it.
+Port of ``cilium_tpu/datapath/engine.py``: one generation of every
+device table (policy, v4 and v6 ipcache LPMs, LB and lb6, prefilter,
+tunnel map, ICMPv6 router address) plus the mutable conntrack tables
+(v4 and v6), counters and the optional Hubble flow table, behind
+``process`` (a ``FullPacketBatch``), ``process_packed`` (one [10, B]
+matrix) and ``process6`` (a ``FullPacketBatch6``).  Swap-on-regenerate:
+``load_policy`` builds a new table generation while conntrack, counters
+and flows survive when the shapes allow (the analog of pinned BPF maps
+surviving an agent restart).  The steps run eagerly; nothing in them
+reads a device value on the host, so a call returns while the card
+still works on it.
 """
 
 from __future__ import annotations
@@ -20,15 +22,20 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..compiler.lpm import CompiledLPM, compile_lpm, ipv4_to_u32
+from ..compiler.lpm import (CompiledLPM, CompiledLPM6, compile_lpm,
+                            compile_lpm6, ipv4_to_u32, ipv6_batch_words,
+                            ipv6_to_words)
 from ..compiler.policy_tables import CompiledPolicy, compile_endpoints
 from ..device import DeviceLike, resolve_device
+from ..hubble.aggregation import FlowTable
 from ..policy.mapstate import PolicyMapState
 from .conntrack import ConntrackTable
-from .lb import LoadBalancer
-from .pipeline import (DatapathTables, FullPacketBatch, FullTables,
-                       build_tables, full_datapath_step,
-                       full_datapath_step_packed)
+from .icmp6 import echo_reply
+from .lb import CompiledLB6, LoadBalancer, Service6, compile_lb6
+from .pipeline import (DatapathTables, FullPacketBatch, FullPacketBatch6,
+                       FullTables, FullTables6, build_tables,
+                       full_datapath_step, full_datapath_step6,
+                       full_datapath_step_packed, lpm6_tables)
 from .prefilter import PreFilter
 from .verdict import Counters, Provenance
 
@@ -45,13 +52,23 @@ class Datapath:
         self.lb = LoadBalancer(device=self.device)
         self.ct = ConntrackTable(slots=ct_slots, max_probe=ct_probe,
                                  device=self.device)
-        # the v6 table stays empty until the v6 step is ported; it keeps
-        # the (v4, v6) shape of the CT snapshot surface
+        # the v6 family's own table (the reference keeps ct6 apart)
         self.ct6 = ConntrackTable(slots=ct_slots, max_probe=ct_probe,
                                   device=self.device)
         self.compiled_policy: Optional[CompiledPolicy] = None
         self.compiled_ipcache: Optional[CompiledLPM] = None
+        self.compiled_ipcache6: Optional[CompiledLPM6] = None
         self.ipcache_prefixes: Dict[str, int] = {}
+        self.ipcache_prefixes6: Dict[str, int] = {}
+        # v6 services: (vip words, port, proto) -> Service6; rev-NAT
+        # indices are allocated monotonically and never reused, since
+        # live CT entries may still carry a freed one
+        self.lb6_services: Dict[tuple, Service6] = {}
+        self.compiled_lb6: Optional[CompiledLB6] = None
+        self._lb6_next_rev = 1
+        # the node's v6 router address as int32 words (icmp6.h
+        # ROUTER_IP): the address whose NS and echo the step answers
+        self._router_ip6: Optional[np.ndarray] = None
         # tunnel map: pod CIDR -> tunnel endpoint node IP (int32 bits)
         self.tunnel_prefixes: Dict[str, int] = {}
         self.compiled_tunnel: Optional[CompiledLPM] = None
@@ -62,7 +79,15 @@ class Datapath:
         self._counters: Optional[torch.Tensor] = None
         self.revision = 0
         self._tables: Optional[FullTables] = None
+        self._tables6: Optional[FullTables6] = None
         self._statics: Dict = {}
+        self._statics6: Dict = {}
+        # Hubble flow aggregation: one table for both families (its keys
+        # are identities); every ``_flow_claim_every``-th call of any
+        # entry point runs the claiming step, the rest the claim-free one
+        self.flows: Optional[FlowTable] = None
+        self._flow_claim_every = 1
+        self._flow_tick = 0
         # incremental mode: policy tensors owned by a DeviceTableManager
         self._table_mgr = None
         self._mgr_geometry = None  # (capacity, slots, max_probe, gen)
@@ -79,6 +104,42 @@ class Datapath:
         if c is None:
             return None
         return Counters(packets=c[0], bytes=c[1])
+
+    def enable_flow_aggregation(self, slots: int = 1 << 12,
+                                max_probe: int = 8,
+                                claim_every: int = 4) -> None:
+        """Turn on the device flow table: both family steps gain the
+        flow-aggregation tail.  ``claim_every`` stripes flow births:
+        only every N-th call runs the claim, the others its claim-free
+        variant."""
+        with self._lock:
+            if self.flows is not None and self.flows.slots == slots:
+                return
+            self.flows = FlowTable(slots=slots, max_probe=max_probe,
+                                   device=self.device)
+            self._flow_claim_every = max(1, claim_every)
+            self._flow_tick = 0
+            self._rebuild()
+
+    def disable_flow_aggregation(self) -> None:
+        with self._lock:
+            if self.flows is None:
+                return
+            self.flows = None
+            self._rebuild()
+
+    def flow_snapshot(self, max_entries: int = 4096):
+        """Decoded per-flow aggregates ([] when disabled)."""
+        with self._lock:
+            flows = self.flows
+            return [] if flows is None else flows.snapshot(max_entries)
+
+    def flow_stats(self) -> Optional[Dict]:
+        with self._lock:
+            if self.flows is None:
+                return None
+            return {**self.flows.stats(),
+                    "claim-every": self._flow_claim_every}
 
     def enable_provenance(self) -> None:
         """Turn on per-packet verdict provenance: each step also yields
@@ -154,11 +215,81 @@ class Datapath:
                         device=self.device)
             return False
 
-    def load_ipcache(self, prefixes: Dict[str, int]) -> None:
+    def load_ipcache(self, prefixes: Dict[str, int],
+                     prefixes6: Optional[Dict[str, int]] = None) -> None:
         with self._lock:
             self.ipcache_prefixes = dict(prefixes)
             self.compiled_ipcache = compile_lpm(prefixes)
+            if prefixes6 is not None:
+                self.ipcache_prefixes6 = dict(prefixes6)
+                self.compiled_ipcache6 = compile_lpm6(prefixes6)
             self._rebuild()
+
+    def load_ipcache6(self, prefixes6: Dict[str, int]) -> None:
+        with self._lock:
+            self.ipcache_prefixes6 = dict(prefixes6)
+            self.compiled_ipcache6 = compile_lpm6(prefixes6)
+            self._rebuild()
+
+    def _admit6(self, svc: Service6) -> None:
+        """Register a v6 service (lock held): a replaced service keeps
+        its rev-NAT index, a new one takes the next unused index."""
+        key = (tuple(svc.vip), svc.port, svc.proto)
+        old = self.lb6_services.get(key)
+        if svc.rev_nat_index <= 0:
+            svc.rev_nat_index = old.rev_nat_index if old is not None \
+                else self._lb6_next_rev
+        self._lb6_next_rev = max(self._lb6_next_rev,
+                                 svc.rev_nat_index + 1)
+        self.lb6_services[key] = svc
+
+    def upsert_service6(self, svc: Service6) -> None:
+        """Program one v6 service (lb6)."""
+        self.upsert_services6([svc])
+
+    def upsert_services6(self, services: Sequence[Service6]) -> None:
+        """``upsert_service6`` for each, in order, with one compile and
+        one table generation."""
+        with self._lock:
+            for svc in services:
+                self._admit6(svc)
+            self.compiled_lb6 = compile_lb6(
+                list(self.lb6_services.values()), device=self.device)
+            self._rebuild()
+
+    def delete_service6(self, vip: tuple, port: int,
+                        proto: int = 6) -> bool:
+        with self._lock:
+            if self.lb6_services.pop((tuple(vip), port, proto),
+                                     None) is None:
+                return False
+            self.compiled_lb6 = compile_lb6(
+                list(self.lb6_services.values()), device=self.device) \
+                if self.lb6_services else None
+            self._rebuild()
+            return True
+
+    def set_router_ip6(self, ip: str) -> None:
+        """Program the v6 router address that the ICMPv6/NDP responder
+        answers for (icmp6.h ROUTER_IP)."""
+        with self._lock:
+            self._router_ip6 = np.asarray(ipv6_to_words(ip),
+                                          np.uint32).view(np.int32)
+            if self._tables6 is not None:
+                self._tables6 = self._tables6._replace(
+                    router_ip6=self._put(self._router_ip6))
+
+    def icmp6_echo_reply_bytes(self, requester_ip6: str, ident: int = 0,
+                               seq: int = 0) -> bytes:
+        """The responder's wire output for an answered echo
+        (icmp6.h __icmp6_send_echo_reply), from this datapath's router
+        address."""
+        with self._lock:
+            if self._router_ip6 is None:
+                raise RuntimeError("router ip6 not programmed")
+            words = [int(w) for w in self._router_ip6.view(np.uint32)]
+        return echo_reply(words, ipv6_to_words(requester_ip6),
+                          ident=ident, seq=seq)
 
     def load_tunnel(self, prefixes: Dict[str, int]) -> None:
         """Program the tunnel map: pod CIDR -> tunnel endpoint node IP
@@ -186,8 +317,9 @@ class Datapath:
                 self._ep_identity = grown
             self._ep_identity[slot] = identity
             if self._tables is not None:
-                self._tables = self._tables._replace(
-                    ep_identity=self._put(self._ep_identity))
+                ep = self._put(self._ep_identity)
+                self._tables = self._tables._replace(ep_identity=ep)
+                self._tables6 = self._tables6._replace(ep_identity=ep)
 
     def reload_services(self) -> None:
         with self._lock:
@@ -249,22 +381,51 @@ class Datapath:
                 tun_key_b=self._put(tun.key_b),
                 tun_value=self._put(tun.value),
                 tun_plens=self._put(tun.prefix_lens))
+        ep_identity = self._put(self._ep_identity)
         self._tables = FullTables(
             datapath=dp, lb=self.lb.compiled.tables,
             pf_masks=self._put(pf.masks), pf_key_a=self._put(pf.key_a),
             pf_key_b=self._put(pf.key_b), pf_value=self._put(pf.value),
             pf_plens=self._put(pf.prefix_lens),
-            ep_identity=self._put(self._ep_identity), **tun_kwargs)
+            ep_identity=ep_identity, **tun_kwargs)
         if self._counters is None or self._counters.shape[1] != n:
             self._counters = torch.zeros((2, n), dtype=torch.int32,
                                          device=self.device)
+        flow_kwargs = {}
+        if self.flows is not None:
+            flow_kwargs = dict(flow_slots=self.flows.slots,
+                               flow_probe=self.flows.max_probe,
+                               flow_claim_budget=self.flows.claim_budget)
         self._statics = dict(
             policy_probe=policy_probe,
             lpm_probe=max(1, self.compiled_ipcache.max_probe),
             pf_probe=max(1, pf.max_probe),
             lb_probe=self.lb.compiled.max_probe,
             ct_slots=self.ct.slots, ct_probe=self.ct.max_probe,
-            tun_probe=tun_probe)
+            tun_probe=tun_probe, **flow_kwargs)
+
+        # the v6 twin shares the policy tensors and endpoint identities
+        ipc6 = self.compiled_ipcache6 if self.compiled_ipcache6 \
+            is not None else compile_lpm6({})
+        pf6 = self.prefilter.compiled6
+        if pf6 is None or pf6.entry_count() == 0:
+            pf6 = compile_lpm6({})
+        lb6 = self.compiled_lb6
+        self._tables6 = FullTables6(
+            key_id=dp.key_id, key_meta=dp.key_meta, value=dp.value,
+            ipcache6=lpm6_tables(ipc6, self.device),
+            pf6=lpm6_tables(pf6, self.device),
+            lb6=lb6.tables if lb6 is not None else None,
+            router_ip6=None if self._router_ip6 is None
+            else self._put(self._router_ip6),
+            ep_identity=ep_identity)
+        self._statics6 = dict(
+            policy_probe=policy_probe,
+            lpm6_probe=max(1, ipc6.max_probe),
+            pf6_probe=max(1, pf6.max_probe),
+            ct_slots=self.ct6.slots, ct_probe=self.ct6.max_probe,
+            lb6_probe=lb6.max_probe if lb6 is not None else 0,
+            **flow_kwargs)
 
     # -- the step ---------------------------------------------------------
 
@@ -279,16 +440,31 @@ class Datapath:
         self._ts_cache = (val, ts)
         return ts
 
-    def _dispatch_locked(self, step, batch, ts):
+    def _dispatch_locked(self, step, family6: bool, batch, ts):
+        """One step of either family (lock held), the flow table and
+        provenance threaded through when they are on."""
         if self._tables is None:
             raise RuntimeError("no policy loaded")
-        outs = step(self._tables, self.ct.state, self.counters, batch, ts,
-                    with_provenance=self.provenance_enabled,
-                    **self._statics)
+        tables, ct, statics = (self._tables6, self.ct6, self._statics6) \
+            if family6 else (self._tables, self.ct, self._statics)
+        flows_in = None
+        if self.flows is not None:
+            flows_in = self.flows.state
+            # claim-admission striping: one tick shared by every entry
+            tick = self._flow_tick
+            self._flow_tick = tick + 1
+            if tick % self._flow_claim_every:
+                statics = dict(statics, flow_claim_budget=0)
+        outs = step(tables, ct.state, self.counters, batch, ts, flows_in,
+                    with_provenance=self.provenance_enabled, **statics)
         verdict, event, identity, nat = outs[:4]
-        self.ct.state = outs[4]
+        ct.state = outs[4]
+        tail = 6
+        if flows_in is not None:
+            self.flows.state = outs[tail]
+            tail += 1
         if self.provenance_enabled:
-            self.last_provenance = Provenance(outs[6], outs[7])
+            self.last_provenance = Provenance(outs[tail], outs[tail + 1])
         return verdict, event, identity, nat
 
     def process(self, pkt: FullPacketBatch, now: Optional[int] = None):
@@ -297,7 +473,16 @@ class Datapath:
         rev-NAT'd reply tuple."""
         ts = self._timestamp(now)
         with self._lock:
-            return self._dispatch_locked(full_datapath_step, pkt, ts)
+            return self._dispatch_locked(full_datapath_step, False, pkt,
+                                         ts)
+
+    def process6(self, pkt: FullPacketBatch6, now: Optional[int] = None):
+        """Classify a v6 batch (bpf_lxc.c:745 ipv6_policy).  Returns
+        (verdict, event, identity, nat6), device tensors."""
+        ts = self._timestamp(now)
+        with self._lock:
+            return self._dispatch_locked(full_datapath_step6, True, pkt,
+                                         ts)
 
     def process_packed(self, packed: torch.Tensor,
                        now: Optional[int] = None):
@@ -308,7 +493,7 @@ class Datapath:
         ts = self._timestamp(now)
         with self._lock:
             return self._dispatch_locked(full_datapath_step_packed,
-                                         packed, ts)
+                                         False, packed, ts)
 
     # -- conntrack surface ------------------------------------------------
 
@@ -375,3 +560,46 @@ def make_full_batch(endpoint, saddr, daddr, sport, dport, proto=None,
         direction=arr(direction, 1), tcp_flags=arr(tcp_flags, 0x02),
         length=arr(length, 100), is_fragment=arr(is_fragment, 0),
         **overlay_fields)
+
+
+def make_full_batch6(endpoint, saddr, daddr, sport, dport, proto=None,
+                     direction=None, tcp_flags=None, length=None,
+                     is_fragment=None, from_overlay=None, tunnel_id=None,
+                     mark_identity=None, icmp_type=None, nd_target=None,
+                     device: DeviceLike = None) -> FullPacketBatch6:
+    """A FullPacketBatch6 on ``device``: addresses (and ``nd_target``)
+    as v6 strings or [B, 4] word arrays; ``icmp_type``/``nd_target``
+    feed the ICMPv6/NDP responder.  Defaults as ``make_full_batch``."""
+    dev = resolve_device(device)
+    n = len(np.asarray(endpoint))
+
+    def arr(x, default):
+        a = np.asarray(x if x is not None else np.full(n, default))
+        return torch.as_tensor(a.astype(np.int32), device=dev)
+
+    def addr6(x):
+        a = np.asarray(x)
+        if a.dtype.kind in ("U", "S", "O"):
+            a = ipv6_batch_words([str(s) for s in a.ravel()])
+        if a.ndim != 2 or a.shape[1] != 4:
+            raise ValueError(f"v6 addresses are [B, 4], got {a.shape}")
+        if a.dtype != np.int32:
+            a = a.astype(np.int64).astype(np.uint32).view(np.int32)
+        return torch.as_tensor(a, device=dev)
+
+    extra = {}
+    if from_overlay is not None or tunnel_id is not None:
+        extra = dict(from_overlay=arr(from_overlay, 0),
+                     tunnel_id=arr(tunnel_id, 0))
+    if mark_identity is not None:
+        extra["mark_identity"] = arr(mark_identity, 0)
+    if icmp_type is not None or nd_target is not None:
+        extra["icmp_type"] = arr(icmp_type, 0)
+        extra["nd_target"] = addr6(nd_target) if nd_target is not None \
+            else torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    return FullPacketBatch6(
+        endpoint=arr(endpoint, 0), saddr=addr6(saddr), daddr=addr6(daddr),
+        sport=arr(sport, 0), dport=arr(dport, 0), proto=arr(proto, 6),
+        direction=arr(direction, 1), tcp_flags=arr(tcp_flags, 0x02),
+        length=arr(length, 100), is_fragment=arr(is_fragment, 0),
+        **extra)

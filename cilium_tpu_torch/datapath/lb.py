@@ -1,10 +1,12 @@
-"""Batched service load balancing (IPv4): VIP -> backend + rev-NAT (torch).
+"""Batched service load balancing: VIP -> backend + rev-NAT (torch).
 
-Port of the v4 part of ``cilium_tpu/datapath/lb.py`` (reference:
-bpf/lib/lb.h lb4_lookup_service, lb4_select_slave, lb4_local and
-lb4_rev_nat; bookkeeping of pkg/maps/lbmap).  Compiled form: one hash
-table (vip, port|proto) -> service index, flat backend arrays indexed by
-[svc_offset + slave], and rev-NAT arrays indexed by rev_nat_index.
+Port of ``cilium_tpu/datapath/lb.py`` (reference: bpf/lib/lb.h
+lb4/lb6_lookup_service, lb*_select_slave, lb*_local and lb*_rev_nat;
+bookkeeping of pkg/maps/lbmap).  Compiled form: one hash table (vip,
+port|proto) -> service index, flat backend arrays indexed by
+[svc_offset + slave], and rev-NAT arrays indexed by rev_nat_index.  The
+v6 tables hold the VIP as four words, compared in full, and whole v6
+addresses in the backend and rev-NAT rows.
 
 JAX clamps an out-of-range gather index and CUDA faults on one, so the
 port clips each gather index the reference lets its clamp absorb: the
@@ -21,8 +23,10 @@ import numpy as np
 import torch
 
 from ..compiler.hashtab import build_hash_table
+from ..compiler.lpm import _hash6 as _hash6_host
 from ..device import DeviceLike, resolve_device
-from ..ops.hashtab_ops import batched_lookup, hash_mix
+from ..ops.hashtab_ops import batched_lookup, fold6, hash_mix
+from ..ops.lpm_ops import _hash6
 
 
 @dataclass(frozen=True)
@@ -169,6 +173,167 @@ def lb_rev_nat(tables: LBTables, saddr, sport, rev_nat_idx
     idx = torch.clamp(torch.where(has, rev_nat_idx,
                                   torch.zeros_like(rev_nat_idx)), 0, n - 1)
     return (torch.where(has, tables.rev_vip[idx], saddr),
+            torch.where(has, tables.rev_port[idx], sport))
+
+
+# ---------------------------------------------------------------------------
+# IPv6 (lb6)
+# ---------------------------------------------------------------------------
+
+Words6 = Tuple[int, int, int, int]  # big-endian uint32 words
+
+
+@dataclass(frozen=True)
+class Backend6:
+    addr: Words6
+    port: int
+
+
+@dataclass
+class Service6:
+    vip: Words6
+    port: int
+    proto: int = 6
+    backends: List[Backend6] = field(default_factory=list)
+    rev_nat_index: int = 0
+
+
+class LB6Tables(NamedTuple):
+    """Device lb6 state, all int32."""
+
+    svc_k0: torch.Tensor      # [S] vip words
+    svc_k1: torch.Tensor
+    svc_k2: torch.Tensor
+    svc_k3: torch.Tensor
+    svc_kb: torch.Tensor      # [S] port<<16 | proto<<8 | 1 (0 = empty)
+    svc_value: torch.Tensor   # [S] service index
+    svc_count: torch.Tensor   # [NSVC]
+    svc_offset: torch.Tensor
+    svc_revnat: torch.Tensor
+    b_addr: torch.Tensor      # [NB, 4]
+    b_port: torch.Tensor      # [NB]
+    rev_vip: torch.Tensor     # [NR, 4]
+    rev_port: torch.Tensor    # [NR]
+
+
+@dataclass
+class CompiledLB6:
+    tables: LB6Tables
+    max_probe: int
+    num_services: int
+    num_backends: int
+
+
+def compile_lb6(services: Sequence[Service6],
+                device: DeviceLike = None) -> CompiledLB6:
+    """Lower v6 services to device tables.  Indices of services without
+    one are allocated past the highest index in use, never the lowest
+    free one: live CT entries may still carry a freed index."""
+    dev = resolve_device(device)
+    used = {s.rev_nat_index for s in services if s.rev_nat_index > 0}
+    next_free = max(used, default=0) + 1
+    for svc in services:
+        if svc.rev_nat_index <= 0:
+            svc.rev_nat_index = next_free
+            used.add(next_free)
+            next_free += 1
+    max_idx = max(used, default=0)
+    n = len(services)
+    slots = 8
+    while slots < 2 * max(n, 1):
+        slots *= 2
+    k = [np.zeros(slots, np.int32) for _ in range(4)]
+    kb = np.zeros(slots, np.int32)
+    value = np.zeros(slots, np.int32)
+    counts, offsets, revnats = [], [], []
+    b_addr: List[Words6] = []
+    b_port: List[int] = []
+    rev_vip: List[Words6] = [(0, 0, 0, 0)] * (max_idx + 1)
+    rev_port = [0] * (max_idx + 1)
+    max_probe = 1
+    for i, svc in enumerate(services):
+        occ = ((svc.port & 0xFFFF) << 16) | ((svc.proto & 0xFF) << 8) | 1
+        h = int(_hash6_host(*svc.vip, occ)) & (slots - 1)
+        probe = 0
+        while kb[(h + probe) % slots] != 0:
+            probe += 1
+        s = (h + probe) % slots
+        for j in range(4):
+            k[j][s] = np.uint32(svc.vip[j]).view(np.int32)
+        # int32 bits: ports >= 0x8000 push occ past the int32 maximum
+        kb[s] = np.uint32(occ).view(np.int32)
+        value[s] = i
+        max_probe = max(max_probe, probe + 1)
+        offsets.append(len(b_addr))
+        counts.append(len(svc.backends))
+        revnats.append(svc.rev_nat_index)
+        for b in svc.backends:
+            b_addr.append(b.addr)
+            b_port.append(b.port)
+        rev_vip[svc.rev_nat_index] = svc.vip
+        rev_port[svc.rev_nat_index] = svc.port
+    put = lambda x: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(x, np.int32), device=dev)
+    words = lambda rows: put(  # noqa: E731
+        np.asarray(rows or [(0, 0, 0, 0)], np.uint32).view(np.int32))
+    tables = LB6Tables(
+        svc_k0=put(k[0]), svc_k1=put(k[1]), svc_k2=put(k[2]),
+        svc_k3=put(k[3]), svc_kb=put(kb), svc_value=put(value),
+        svc_count=put(counts or [0]), svc_offset=put(offsets or [0]),
+        svc_revnat=put(revnats or [0]), b_addr=words(b_addr),
+        b_port=put(b_port or [0]), rev_vip=words(rev_vip),
+        rev_port=put(rev_port))
+    return CompiledLB6(tables=tables, max_probe=max_probe,
+                       num_services=n, num_backends=len(b_addr))
+
+
+def lb6_step(tables: LB6Tables, daddr, dport, proto, saddr, sport, *,
+             max_probe: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                        torch.Tensor]:
+    """v6 service DNAT (lb6_lookup_service + lb6_select_slave +
+    lb6_local); daddr/saddr are [B, 4].  Returns (new_daddr [B, 4],
+    new_dport, rev_nat_idx, is_service).  The backend index is clipped
+    into the backend arrays, as JAX's gather clamps it."""
+    slots = tables.svc_kb.shape[0]
+    mask = slots - 1
+    zero = torch.zeros((), dtype=torch.int32, device=daddr.device)
+    qb = ((dport & 0xFFFF) << 16) | ((proto & 0xFF) << 8) | 1
+    h = _hash6(daddr[:, 0], daddr[:, 1], daddr[:, 2], daddr[:, 3], qb)
+    steps = torch.arange(max_probe, dtype=torch.int32, device=daddr.device)
+    probes = ((h[:, None] & mask) + steps[None, :]) & mask        # [B, K]
+    got_kb = tables.svc_kb[probes]
+    hit = (tables.svc_k0[probes] == daddr[:, 0:1]) & \
+        (tables.svc_k1[probes] == daddr[:, 1:2]) & \
+        (tables.svc_k2[probes] == daddr[:, 2:3]) & \
+        (tables.svc_k3[probes] == daddr[:, 3:4]) & \
+        (got_kb == qb[:, None]) & (got_kb != 0)
+    found = hit.any(dim=1)
+    svc_idx = torch.where(hit, tables.svc_value[probes], zero).sum(
+        dim=1, dtype=torch.int32)
+    count = tables.svc_count[svc_idx]
+    offset = tables.svc_offset[svc_idx]
+    hsel = hash_mix(hash_mix(fold6(saddr), fold6(daddr)),
+                    hash_mix(((sport & 0xFFFF) << 16) | (dport & 0xFFFF),
+                             proto))
+    bidx = torch.clamp(offset + select_slave(hsel, count), 0,
+                       tables.b_port.shape[0] - 1)
+    ok = found & (count > 0)
+    new_daddr = torch.where(ok[:, None], tables.b_addr[bidx], daddr)
+    new_dport = torch.where(ok, tables.b_port[bidx], dport)
+    rev_nat = torch.where(ok, tables.svc_revnat[svc_idx], zero)
+    return new_daddr, new_dport, rev_nat, ok
+
+
+def lb6_rev_nat(tables: LB6Tables, saddr, sport, rev_nat_idx
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reply-path v6 reverse NAT (lb6_rev_nat): saddr [B, 4].  The index
+    is clipped to the rev-NAT arrays, as JAX's gather clamps it."""
+    has = rev_nat_idx > 0
+    n = tables.rev_vip.shape[0]
+    idx = torch.clamp(torch.where(has, rev_nat_idx,
+                                  torch.zeros_like(rev_nat_idx)), 0, n - 1)
+    return (torch.where(has[:, None], tables.rev_vip[idx], saddr),
             torch.where(has, tables.rev_port[idx], sport))
 
 

@@ -1,13 +1,16 @@
 """The fused steps: config-1 (ipcache LPM + 3-stage policy verdict) and
-the v4 stateful serving step.
+the v4 and v6 stateful serving steps.
 
-Port of the v4 part of ``cilium_tpu/datapath/pipeline.py``: the batched
-equivalent of the reference's per-packet path (bpf_lxc.c
-handle_ipv4_from_lxc).  ``datapath_step`` is ipcache lookup →
-policy_can_egress → counters; ``full_datapath_step`` adds the XDP
-prefilter, service DNAT, conntrack, CT create, reply rev-NAT and the
-overlay encap.  Eager torch: the counters and the CT table are updated
-in place, and no step reads a device value on the host.
+Port of ``cilium_tpu/datapath/pipeline.py``: the batched equivalent of
+the reference's per-packet path (bpf_lxc.c handle_ipv4_from_lxc and
+ipv6_policy).  ``datapath_step`` is ipcache lookup → policy_can_egress →
+counters; ``full_datapath_step`` adds the XDP prefilter, service DNAT,
+conntrack, CT create, reply rev-NAT and the overlay encap;
+``full_datapath_step6`` is its v6 twin with the ICMPv6/NDP responder.
+Both family steps take an optional Hubble flow table (``flows``) that
+they update at their end.  Eager torch: the counters, the CT table and
+the flow table are updated in place, and no step reads a device value
+on the host.
 """
 
 from __future__ import annotations
@@ -21,13 +24,19 @@ import torch
 from ..compiler.lpm import CompiledLPM
 from ..compiler.policy_tables import CompiledPolicy
 from ..device import DeviceLike, resolve_device
-from ..ops.lpm_ops import lpm_lookup
+from ..compiler.lpm import CompiledLPM6
+from ..hubble.aggregation import FlowState, flow_update_step
+from ..ops.hashtab_ops import fold6
+from ..ops.lpm_ops import lpm6_lookup, lpm_lookup
 from .codes import VERDICT_DROP, VERDICT_DROP_FRAG, WORLD_IDENTITY
 from .conntrack import CT_NEW, CT_RELATED, CT_REPLY, CTBatch, ct_step
 from .events import (DROP_FRAG_NOSUPPORT, DROP_POLICY, DROP_PREFILTER,
-                     TIER_CT_ESTABLISHED, TIER_PREFILTER, TRACE_TO_LXC,
-                     TRACE_TO_OVERLAY, TRACE_TO_PROXY)
-from .lb import LBTables, lb_rev_nat, lb_step
+                     DROP_UNKNOWN_TARGET, ICMP6_ECHO_REPLY,
+                     ICMP6_NS_REPLY, TIER_CT_ESTABLISHED, TIER_LB,
+                     TIER_PREFILTER, TRACE_TO_LXC, TRACE_TO_OVERLAY,
+                     TRACE_TO_PROXY)
+from .lb import LB6Tables, LBTables, lb6_rev_nat, lb6_step, lb_rev_nat, \
+    lb_step
 from .verdict import Counters, PacketBatch, verdict_step
 
 
@@ -181,6 +190,35 @@ class FullTables(NamedTuple):
     ep_identity: Optional[torch.Tensor] = None
 
 
+def _flow_identities(ep_identity, endpoint, peer_identity, direction):
+    """(src, dst) security identities of the flow key: the endpoint's own
+    identity on its side of the flow, the resolved peer identity on the
+    other (egress flows read ep -> peer, ingress flows peer -> ep)."""
+    if ep_identity is not None:
+        n_ep = ep_identity.shape[0]
+        own = ep_identity[torch.clamp(endpoint, 0, n_ep - 1)]
+    else:
+        own = torch.zeros_like(peer_identity)
+    egress = direction == 1
+    src = torch.where(egress, own, peer_identity)
+    dst = torch.where(egress, peer_identity, own)
+    return src, dst
+
+
+def _flows_tail(flows: FlowState, ep_identity, pkt, identity, dport,
+                event, now, *, flow_slots: int, flow_probe: int,
+                flow_claim_budget: int) -> FlowState:
+    """Hubble flow aggregation at the end of a family step: per-flow
+    packet/byte counters and last-seen keyed by (src identity, dst
+    identity, DNAT'd dport, proto, event)."""
+    src_id, dst_id = _flow_identities(ep_identity, pkt.endpoint, identity,
+                                      pkt.direction)
+    return flow_update_step(flows, src_id, dst_id, dport, pkt.proto,
+                            event, pkt.length, now, slots=flow_slots,
+                            max_probe=flow_probe,
+                            claim_budget=flow_claim_budget)
+
+
 # field order of the serving path's packed [10, B] batch matrix
 PACKED_FIELDS = ("endpoint", "saddr", "daddr", "sport", "dport",
                  "proto", "direction", "tcp_flags", "length",
@@ -190,20 +228,26 @@ PACKED_INDEX = {f: i for i, f in enumerate(PACKED_FIELDS)}
 
 def full_datapath_step_packed(tables: FullTables, ct: torch.Tensor,
                               counters: Counters, packed: torch.Tensor,
-                              now: torch.Tensor, **statics):
+                              now: torch.Tensor,
+                              flows: Optional[FlowState] = None,
+                              **statics):
     """``full_datapath_step`` over ONE [10, B] int32 field matrix in
     ``PACKED_FIELDS`` order (one host-to-device copy per batch); the
     fields are row views of it."""
     pkt = FullPacketBatch(**{f: packed[i]
                              for i, f in enumerate(PACKED_FIELDS)})
-    return full_datapath_step(tables, ct, counters, pkt, now, **statics)
+    return full_datapath_step(tables, ct, counters, pkt, now, flows,
+                              **statics)
 
 
 def full_datapath_step(tables: FullTables, ct: torch.Tensor,
                        counters: Counters, pkt: FullPacketBatch,
-                       now: torch.Tensor, *, policy_probe: int,
-                       lpm_probe: int, pf_probe: int, lb_probe: int,
-                       ct_slots: int, ct_probe: int, tun_probe: int = 0,
+                       now: torch.Tensor,
+                       flows: Optional[FlowState] = None, *,
+                       policy_probe: int, lpm_probe: int, pf_probe: int,
+                       lb_probe: int, ct_slots: int, ct_probe: int,
+                       tun_probe: int = 0, flow_slots: int = 0,
+                       flow_probe: int = 0, flow_claim_budget: int = 1024,
                        with_provenance: bool = False):
     """The batched egress/ingress path (bpf_lxc.c:432
     handle_ipv4_from_lxc): XDP prefilter drop, service DNAT (lb4_local),
@@ -214,9 +258,10 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
     ``ct`` ([8, ct_slots+2]) and ``counters`` are updated in place.
     ``now`` is a 0-d int32 tensor on the batch's device.  Returns
     (verdict, event, identity, nat, ct, counters), each [B] int32 but
-    nat (a NATResult); ``with_provenance`` appends the matched policy
-    slot (-1 = none) and the decision tier.  Verdict: -N drop code,
-    0 allow, > 0 proxy port."""
+    nat (a NATResult); with ``flows`` and ``flow_slots`` > 0 the flow
+    table is updated in place and appended; ``with_provenance`` appends
+    the matched policy slot (-1 = none) and the decision tier.  Verdict:
+    -N drop code, 0 allow, > 0 proxy port."""
     dev = pkt.saddr.device
     i32 = lambda x: torch.full((), x, dtype=torch.int32,  # noqa: E731
                                device=dev)
@@ -323,6 +368,12 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
                     sport=nat_sport, rev_nat=ct_rev_nat,
                     tunnel_ep=tun_ep_out, tunnel_id=tun_id_out)
     out = (verdict, event, identity, nat, ct, counters)
+    if flows is not None and flow_slots > 0:
+        # 10. Hubble flow aggregation.
+        out = out + (_flows_tail(
+            flows, tables.ep_identity, pkt, identity, dport, event, now,
+            flow_slots=flow_slots, flow_probe=flow_probe,
+            flow_claim_budget=flow_claim_budget),)
     if with_provenance:
         # 11. Provenance: the final-verdict precedence of step 7.
         pol_slot, pol_tier = pol[2], pol[3]
@@ -330,5 +381,248 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
                            torch.where(established,
                                        i32(TIER_CT_ESTABLISHED), pol_tier))
         slot = torch.where(pf_hit | established, i32(-1), pol_slot)
+        out = out + (slot, tier)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# IPv6 step (bpf_lxc.c:114 ipv6_l3_from_lxc, :745 ipv6_policy)
+# ---------------------------------------------------------------------------
+#
+# Addresses are [B, 4] int32 words (big-endian u32).  The policy tables
+# are family-agnostic and shared with v4; prefilter and ipcache run the
+# four-word LPM.  The v6 conntrack is a separate table whose two address
+# words hold 32-bit folds of the 128-bit addresses (``fold6``), as in
+# the reference: two v6 flows share an entry only if both folds, the
+# port pair and proto/direction all collide.
+
+IPPROTO_ICMPV6 = 58
+ICMP6_NS = 135            # neighbour solicitation
+ICMP6_ECHO_REQUEST = 128
+
+
+class FullPacketBatch6(NamedTuple):
+    """v6 wire metadata; addresses [B, 4], everything else [B] int32.
+
+    ``icmp_type`` carries the ICMPv6 type of proto-58 rows (0
+    elsewhere), ``nd_target`` the ND target address of NS packets ([B,
+    4], zeros elsewhere), as bpf/lib/icmp6.h reads them from the wire."""
+
+    endpoint: torch.Tensor
+    saddr: torch.Tensor       # [B, 4]
+    daddr: torch.Tensor       # [B, 4]
+    sport: torch.Tensor
+    dport: torch.Tensor
+    proto: torch.Tensor
+    direction: torch.Tensor
+    tcp_flags: torch.Tensor
+    length: torch.Tensor
+    is_fragment: torch.Tensor
+    from_overlay: Optional[torch.Tensor] = None
+    tunnel_id: Optional[torch.Tensor] = None
+    mark_identity: Optional[torch.Tensor] = None
+    icmp_type: Optional[torch.Tensor] = None
+    nd_target: Optional[torch.Tensor] = None
+
+
+class LPM6Tables(NamedTuple):
+    masks: torch.Tensor   # [P, 4]
+    k0: torch.Tensor      # [P, S]
+    k1: torch.Tensor
+    k2: torch.Tensor
+    k3: torch.Tensor
+    kb: torch.Tensor
+    value: torch.Tensor
+    plens: torch.Tensor   # [P]
+
+
+class NAT6Result(NamedTuple):
+    """v6 forwarding result: the DNAT'd destination (forward) and the
+    rev-NAT'd, VIP-restored source (reply).  Addresses [B, 4]."""
+
+    daddr: torch.Tensor
+    dport: torch.Tensor
+    saddr: torch.Tensor
+    sport: torch.Tensor
+    rev_nat: torch.Tensor
+
+
+class FullTables6(NamedTuple):
+    """All device state of the v6 step.  The policy tensors and
+    ``ep_identity`` are the v4 tables' own."""
+
+    key_id: torch.Tensor      # shared policy tables [E, S]
+    key_meta: torch.Tensor
+    value: torch.Tensor
+    ipcache6: LPM6Tables
+    pf6: LPM6Tables
+    lb6: Optional[LB6Tables] = None   # None: no v6 services
+    # the node's router address words [4] (icmp6.h ROUTER_IP); None
+    # disables the ICMPv6 responder
+    router_ip6: Optional[torch.Tensor] = None
+    ep_identity: Optional[torch.Tensor] = None
+
+
+def lpm6_tables(c: CompiledLPM6, device: DeviceLike = None) -> LPM6Tables:
+    """CompiledLPM6 -> device tables."""
+    dev = resolve_device(device)
+    put = lambda x: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(x, np.int32), device=dev)
+    return LPM6Tables(masks=put(c.masks), k0=put(c.k0), k1=put(c.k1),
+                      k2=put(c.k2), k3=put(c.k3), kb=put(c.kb),
+                      value=put(c.value), plens=put(c.prefix_lens))
+
+
+def _lpm6(t: LPM6Tables, addrs: torch.Tensor, probe: int):
+    return lpm6_lookup(t.masks, t.k0, t.k1, t.k2, t.k3, t.kb, t.value,
+                       t.plens, addrs, probe)
+
+
+def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
+                        counters: Counters, pkt: FullPacketBatch6,
+                        now: torch.Tensor,
+                        flows: Optional[FlowState] = None, *,
+                        policy_probe: int, lpm6_probe: int,
+                        pf6_probe: int, ct_slots: int, ct_probe: int,
+                        lb6_probe: int = 0, flow_slots: int = 0,
+                        flow_probe: int = 0, flow_claim_budget: int = 1024,
+                        with_provenance: bool = False):
+    """The v6 twin of ``full_datapath_step`` (bpf_lxc.c:745
+    ipv6_policy): prefilter drop, the ICMPv6/NDP responder, service DNAT
+    (lb6_local), conntrack on folded tuples, ipcache identity, policy
+    verdict for CT_NEW flows, CT create gated on the verdict, reply
+    rev-NAT (lb6_rev_nat).  Same outputs and in-place updates as the v4
+    step, with a NAT6Result."""
+    dev = pkt.sport.device
+    b = pkt.sport.shape[0]
+    i32 = lambda x: torch.full((), x, dtype=torch.int32,  # noqa: E731
+                               device=dev)
+    no = torch.zeros(b, dtype=torch.bool, device=dev)
+
+    # 1. Prefilter.
+    if tables.pf6.kb.shape[0] > 0:
+        pf_hit, _ = _lpm6(tables.pf6, pkt.saddr, pf6_probe)
+    else:
+        pf_hit = no
+
+    # 1.5 ICMPv6/NDP responder (icmp6.h icmp6_handle, before LB/CT/
+    # policy): an NS for the router is answered with an NA, an NS for
+    # anything else drops, an echo request to the router is answered;
+    # every other ICMPv6 packet goes on through CT and policy.
+    if tables.router_ip6 is not None and pkt.icmp_type is not None:
+        is_icmp6 = pkt.proto == IPPROTO_ICMPV6
+        router = tables.router_ip6[None, :]
+        is_ns = is_icmp6 & (pkt.icmp_type == ICMP6_NS)
+        nd_target = pkt.nd_target if pkt.nd_target is not None \
+            else torch.zeros_like(pkt.saddr)
+        target_is_router = (nd_target == router).all(dim=1)
+        ns_answer = is_ns & target_is_router
+        ns_unknown = is_ns & ~target_is_router
+        echo_answer = is_icmp6 & (pkt.icmp_type == ICMP6_ECHO_REQUEST) & \
+            (pkt.daddr == router).all(dim=1)
+        icmp6_handled = ns_answer | ns_unknown | echo_answer
+    else:
+        ns_answer = ns_unknown = echo_answer = icmp6_handled = no
+
+    # 2. Service LB DNAT (lb.h lb6_local).
+    if lb6_probe > 0 and tables.lb6 is not None:
+        daddr, dport, rev_nat, _is_svc = lb6_step(
+            tables.lb6, pkt.daddr, pkt.dport, pkt.proto, pkt.saddr,
+            pkt.sport, max_probe=lb6_probe)
+    else:
+        daddr, dport = pkt.daddr, pkt.dport
+        rev_nat = torch.zeros(b, dtype=torch.int32, device=dev)
+
+    # 3. Conntrack on the DNAT'd folded tuple (its own table).
+    ctb = CTBatch(saddr=fold6(pkt.saddr), daddr=fold6(daddr),
+                  sport=pkt.sport, dport=dport, proto=pkt.proto,
+                  direction=pkt.direction, tcp_flags=pkt.tcp_flags,
+                  related=torch.zeros_like(pkt.proto))
+
+    # 4. ipcache6: identity of the peer (src on ingress, dst on egress).
+    peer = torch.where((pkt.direction == 0)[:, None], pkt.saddr, daddr)
+    if tables.ipcache6.kb.shape[0] > 0:
+        found, ident = _lpm6(tables.ipcache6, peer, lpm6_probe)
+    else:
+        found = no
+        ident = torch.zeros(b, dtype=torch.int32, device=dev)
+    identity = torch.where(found, ident, i32(WORLD_IDENTITY))
+    if pkt.from_overlay is not None:
+        decap = (pkt.from_overlay != 0) & (pkt.direction == 0)
+        identity = torch.where(decap, pkt.tunnel_id, identity)
+    if pkt.mark_identity is not None:
+        identity = torch.where(pkt.mark_identity > 0, pkt.mark_identity,
+                               identity)
+
+    # 5. Policy verdict on the shared tables, against the DNAT'd port;
+    # locally answered ICMPv6 is not counted.
+    vb = PacketBatch(endpoint=pkt.endpoint, identity=identity,
+                     dport=dport, proto=pkt.proto,
+                     direction=pkt.direction, length=pkt.length,
+                     is_fragment=pkt.is_fragment)
+    pol = verdict_step(tables.key_id, tables.key_meta, tables.value,
+                       counters, vb, policy_probe,
+                       count_mask=~icmp6_handled,
+                       with_provenance=with_provenance)
+    pol_verdict, counters = pol[0], pol[1]
+
+    # 6. CT step, creation gated on the verdict; locally answered
+    # ICMPv6 neither creates nor touches CT state.
+    create_ok = (pol_verdict >= 0) & ~pf_hit & ~icmp6_handled
+    proxy_in = torch.clamp(pol_verdict, min=0)
+    ct_verdict, ct_rev_nat, ct_proxy, ct = ct_step(
+        ct, ctb, now, create_ok, update_mask=~pf_hit & ~icmp6_handled,
+        rev_nat_in=rev_nat, proxy_port_in=proxy_in,
+        slots=ct_slots, max_probe=ct_probe)
+
+    established = ct_verdict != CT_NEW
+    verdict = torch.where(
+        pf_hit, i32(VERDICT_DROP),
+        torch.where(ns_unknown, i32(VERDICT_DROP),
+                    torch.where(ns_answer | echo_answer, i32(0),
+                                torch.where(established, ct_proxy,
+                                            pol_verdict))))
+
+    # 7. Reply-path reverse NAT (lb6_rev_nat).
+    is_reply = (ct_verdict == CT_REPLY) | (ct_verdict == CT_RELATED)
+    rn = torch.where(is_reply, ct_rev_nat, i32(0))
+    if tables.lb6 is not None:
+        nat_saddr, nat_sport = lb6_rev_nat(tables.lb6, pkt.saddr,
+                                           pkt.sport, rn)
+    else:
+        nat_saddr, nat_sport = pkt.saddr, pkt.sport
+
+    event = torch.where(
+        pf_hit, i32(DROP_PREFILTER),
+        torch.where(ns_answer, i32(ICMP6_NS_REPLY),
+        torch.where(echo_answer, i32(ICMP6_ECHO_REPLY),
+        torch.where(ns_unknown, i32(DROP_UNKNOWN_TARGET),
+        torch.where(verdict == VERDICT_DROP_FRAG, i32(DROP_FRAG_NOSUPPORT),
+                    torch.where(verdict < 0, i32(DROP_POLICY),
+                                torch.where(verdict > 0,
+                                            i32(TRACE_TO_PROXY),
+                                            i32(TRACE_TO_LXC))))))))
+
+    nat = NAT6Result(daddr=daddr, dport=dport, saddr=nat_saddr,
+                     sport=nat_sport, rev_nat=ct_rev_nat)
+    out = (verdict, event, identity, nat, ct, counters)
+    if flows is not None and flow_slots > 0:
+        # Hubble flow aggregation, shared with v4 (identity keys);
+        # answered ICMPv6 aggregates under its reply event.
+        out = out + (_flows_tail(
+            flows, tables.ep_identity, pkt, identity, dport, event, now,
+            flow_slots=flow_slots, flow_probe=flow_probe,
+            flow_claim_budget=flow_claim_budget),)
+    if with_provenance:
+        # Provenance: prefilter, then the ICMPv6 responder (the local
+        # service tier), then CT, then policy.
+        pol_slot, pol_tier = pol[2], pol[3]
+        tier = torch.where(
+            pf_hit, i32(TIER_PREFILTER),
+            torch.where(icmp6_handled, i32(TIER_LB),
+                        torch.where(established, i32(TIER_CT_ESTABLISHED),
+                                    pol_tier)))
+        slot = torch.where(pf_hit | icmp6_handled | established, i32(-1),
+                           pol_slot)
         out = out + (slot, tier)
     return out

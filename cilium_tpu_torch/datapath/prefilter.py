@@ -2,10 +2,9 @@
 
 Port of ``cilium_tpu/datapath/prefilter.py`` (reference: bpf/bpf_xdp.c:158
 check_filters and pkg/datapath/prefilter/prefilter.go:30-125, the manager
-of the four CIDR maps, dyn/fixed x v4/v6).  The v4 deny set compiles to
-an LPM evaluated as a [B] mask in front of the step.  v6 CIDRs are
-accepted and kept in their host sets as in the reference; their device
-lookup waits for the port's v6 LPM.
+of the four CIDR maps, dyn/fixed x v4/v6).  Each family's deny set
+compiles to an LPM evaluated as a [B] mask in front of its step: the v4
+set to a one-word LPM, the v6 set to a four-word one.
 """
 
 from __future__ import annotations
@@ -17,8 +16,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..compiler.lpm import CompiledLPM, compile_lpm
-from ..ops.lpm_ops import lpm_lookup
+from ..compiler.lpm import (CompiledLPM, CompiledLPM6, compile_lpm,
+                            compile_lpm6)
+from ..ops.lpm_ops import lpm6_lookup, lpm_lookup
 
 
 class PrefilterType(IntEnum):
@@ -34,9 +34,9 @@ _V4_TYPES = (PrefilterType.PREFIX_DYN_V4, PrefilterType.PREFIX_FIX_V4)
 
 
 class PreFilter:
-    """Manager of deny-CIDR sets; the v4 sets compile to one LPM
+    """Manager of deny-CIDR sets; each family's sets compile to one LPM
     (prefilter.go:30-44 four maps, :125 Insert/Delete/Dump).  The
-    compiled LPM stays on the host; callers put it on their device."""
+    compiled LPMs stay on the host; callers put them on their device."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -44,7 +44,9 @@ class PreFilter:
             t: set() for t in PrefilterType}
         self.revision = 1
         self.compiled: Optional[CompiledLPM] = None
+        self.compiled6: Optional[CompiledLPM6] = None
         self._last_v4: Optional[Dict[str, int]] = None
+        self._last_v6: Optional[Dict[str, int]] = None
 
     @staticmethod
     def _family_type(net, which: PrefilterType) -> PrefilterType:
@@ -90,10 +92,15 @@ class PreFilter:
 
     def _recompile(self) -> None:
         v4 = {c: 1 for t in _V4_TYPES for c in self._cidrs[t]}
-        # only a changed v4 set recompiles
+        v6 = {c: 1 for t in PrefilterType if t not in _V4_TYPES
+              for c in self._cidrs[t]}
+        # only the family whose set changed recompiles
         if v4 != self._last_v4:
             self._last_v4 = v4
             self.compiled = compile_lpm(v4)
+        if v6 != self._last_v6:
+            self._last_v6 = v6
+            self.compiled6 = compile_lpm6(v6)
 
     def drop_mask(self, src_addrs: torch.Tensor) -> torch.Tensor:
         """[B] bool: True where the v4 source address is denylisted."""
@@ -109,6 +116,15 @@ class PreFilter:
         return found
 
     def drop_mask6(self, src_addrs: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "the v6 prefilter needs the port's v6 LPM (lpm6_lookup), "
-            "which is not ported yet; v6 CIDRs are kept in the host sets")
+        """[B] bool for [B, 4] v6 source address words."""
+        c = self.compiled6
+        if c is None or c.entry_count() == 0:
+            return torch.zeros(src_addrs.shape[0], dtype=torch.bool,
+                               device=src_addrs.device)
+        put = lambda x: torch.as_tensor(  # noqa: E731
+            x, device=src_addrs.device)
+        found, _ = lpm6_lookup(put(c.masks), put(c.k0), put(c.k1),
+                               put(c.k2), put(c.k3), put(c.kb),
+                               put(c.value), put(c.prefix_lens),
+                               src_addrs, c.max_probe)
+        return found

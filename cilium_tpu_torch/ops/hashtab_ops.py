@@ -43,6 +43,13 @@ def hash_mix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def fold6(words: torch.Tensor) -> torch.Tensor:
+    """[B, 4] IPv6 address words -> [B] 32-bit mix: the v6 conntrack key
+    and the v6 backend-selection hash take addresses folded this way."""
+    return hash_mix(hash_mix(words[:, 0], words[:, 1]),
+                    hash_mix(words[:, 2], words[:, 3]))
+
+
 def batched_lookup(key_a: torch.Tensor, key_b: torch.Tensor,
                    value: torch.Tensor, q_a: torch.Tensor,
                    q_b: torch.Tensor, max_probe: int,

@@ -14,6 +14,12 @@ over it: a pool of flows that open, exchange and close, service traffic,
 replies, new flows and denylisted sources.  All of it comes from numpy
 seeds, so the same seeds give the same state and batches on any device.
 ``V4Run`` serves that stream through a ``Datapath`` on a device.
+
+``v6_serving_state`` / ``v6_serving_packets`` / ``V6Run`` are the v6
+twin: every v4 address ``a`` becomes ``fd00::a`` (the v4 word in the low
+32 bits of the ULA ``fd00::/96``), prefixes grow by 96 bits, and 1% of a
+batch is ICMPv6 for the node's router (neighbour solicitations and echo
+requests).
 """
 
 from __future__ import annotations
@@ -24,12 +30,14 @@ from typing import Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from .compiler.lpm import compile_lpm, parse_prefixes
+from .compiler.lpm import compile_lpm, ipv6_to_words, parse_prefixes
 from .compiler.policy_tables import compile_endpoints
 from .datapath import conntrack
 from .datapath.engine import Datapath
-from .datapath.lb import Backend, Service, compile_lb, lb_step
-from .datapath.pipeline import PACKED_FIELDS, RawPacketBatch, make_step
+from .datapath.lb import (Backend, Backend6, Service, Service6, compile_lb,
+                          compile_lb6, lb6_step, lb_step)
+from .datapath.pipeline import (PACKED_FIELDS, FullPacketBatch6,
+                                RawPacketBatch, make_step)
 from .device import DeviceLike, resolve_device
 from .ops.dense_verdict import (compile_dense, compile_dense_lpm,
                                 dense_datapath_step, dense_segments)
@@ -295,33 +303,37 @@ V4_SHARES = {"service": 0.25, "reply": 0.10, "new": 0.04,
              "prefilter": 0.01, "close": 0.005}
 
 
-def v4_serving_packets(state: V4ServingState, batch: int,
-                       n_flows: int = 1 << 16, seed: int = 5
-                       ) -> Iterator[np.ndarray]:
-    """Endless [10, batch] int32 batches (``PACKED_FIELDS`` order) of
-    connections over ``state``.
+def _v4_backends(state: V4ServingState):
+    """``pick(vip, vport, client, sport) -> (backend, port)``: the
+    backend that the v4 LB picks for each service connection (int64
+    addresses), by the port's ``lb_step`` on the CPU."""
+    lb = compile_lb([Service(vip=s.vip, port=s.port, proto=s.proto,
+                             backends=list(s.backends))
+                     for s in state.services], device="cpu")
 
-    A pool of ``n_flows`` flows, one client pod each on endpoint
-    ``j % E``, each with a direct destination (an address of a policy
-    prefix on its identity's rule port; a fifth of them in a peer
-    node's pod CIDR) and a service twin (another source port to one
-    service's VIP; flow 0's to the backend-less one).  A batch holds
-    about 59.5% forward egress packets of pool flows and 25% of their
-    service twins (SYN in a flow's first batch, ACK after), 10% ingress
-    replies of flows opened in earlier batches (half of them from the
-    service backend the LB picked), 4% new flows to uniform addresses
-    and ports (mostly denied), 1% ingress packets sourced inside the
-    prefilter's CIDRs, and 0.5% FIN or RST packets that close both
-    connections of a flow, which sends nothing else in that batch and
-    reopens with new source ports in the next.  Lengths 64-1,499."""
+    def pick(vip, vport, client, sport):
+        u32 = lambda x: torch.as_tensor(  # noqa: E731
+            x.astype(np.uint32).view(np.int32))
+        back, bport, _, _ = lb_step(
+            lb.tables, u32(vip), u32(vport),
+            torch.full((vip.shape[0],), 6, dtype=torch.int32),
+            u32(client), u32(sport), max_probe=lb.max_probe)
+        return back.numpy().view(np.uint32).astype(np.int64), bport.numpy()
+    return pick
+
+
+def _serving_rows(state: V4ServingState, batch: int, n_flows: int,
+                  seed: int, pick_backend, reserved: int = 0):
+    """Endless (rng, columns) of the connection stream of
+    ``v4_serving_packets``, unshuffled and without lengths: int64 [m]
+    columns of ``PACKED_FIELDS`` but length, m = ``batch - reserved``.
+    The caller draws its shuffle and lengths from ``rng`` before the
+    next batch, so a caller that reserves no rows sees the v4 stream."""
     rng = np.random.default_rng(seed)
     n_ep = len(state.ep_identity)
     nets = parse_prefixes(state.prefixes)
     tun_nets = parse_prefixes(state.tunnel)
     lpm = compile_lpm(state.prefixes)
-    lb = compile_lb([Service(vip=s.vip, port=s.port, proto=s.proto,
-                             backends=list(s.backends))
-                     for s in state.services], device="cpu")
     pf_nets = parse_prefixes({c: 1 for c in state.prefilter})
 
     flow = np.arange(n_flows, dtype=np.int64)
@@ -373,8 +385,8 @@ def v4_serving_packets(state: V4ServingState, batch: int,
                             conntrack.TCP_ACK)
 
         n_rep = counts["reply"] if answer.shape[0] else 0
-        j = rng.choice(active, batch - 2 * closing.shape[0] - n_rep -
-                       counts["service"] - counts["new"] -
+        j = rng.choice(active, batch - reserved - 2 * closing.shape[0] -
+                       n_rep - counts["service"] - counts["new"] -
                        counts["prefilter"])
         add(ep[j], client[j], dst[j], sport(j), dst_port[j], 1,
             syn_or_ack(j))
@@ -384,16 +396,10 @@ def v4_serving_packets(state: V4ServingState, batch: int,
         if n_rep:
             j = rng.choice(answer, n_rep)
             via_svc = rng.random(n_rep) < 0.5
-            u32 = lambda x: torch.as_tensor(  # noqa: E731
-                x.astype(np.uint32).view(np.int32))
-            back, bport, _, _ = lb_step(
-                lb.tables, u32(vip[j]), u32(vport[j]),
-                torch.full((n_rep,), 6, dtype=torch.int32),
-                u32(client[j]), u32(sport(j) + 1),
-                max_probe=lb.max_probe)
-            back = back.numpy().view(np.uint32).astype(np.int64)
+            back, bport = pick_backend(vip[j], vport[j], client[j],
+                                       sport(j) + 1)
             add(ep[j], np.where(via_svc, back, dst[j]), client[j],
-                np.where(via_svc, bport.numpy(), dst_port[j]),
+                np.where(via_svc, bport, dst_port[j]),
                 np.where(via_svc, sport(j) + 1, sport(j)), 0,
                 conntrack.TCP_ACK)
         n_new = counts["new"]
@@ -416,40 +422,59 @@ def v4_serving_packets(state: V4ServingState, batch: int,
             np.where(rng.random(j.shape[0]) < 0.8,
                      conntrack.TCP_FIN | conntrack.TCP_ACK,
                      conntrack.TCP_RST))
-        order = rng.permutation(batch)
-        length = rng.integers(64, 1500, batch)
-        out = np.empty((len(PACKED_FIELDS), batch), np.int32)
-        for i, f in enumerate(PACKED_FIELDS):
-            col = length if f == "length" else np.concatenate(cols[f])
-            out[i] = col.astype(np.uint32).view(np.int32)[order]
+        yield rng, {f: np.concatenate(v) for f, v in cols.items()}
         # the closed flows reopen with new source ports next batch
         gen[closing] += 1
         opened[closing] = t + 1
         t += 1
+
+
+def v4_serving_packets(state: V4ServingState, batch: int,
+                       n_flows: int = 1 << 16, seed: int = 5
+                       ) -> Iterator[np.ndarray]:
+    """Endless [10, batch] int32 batches (``PACKED_FIELDS`` order) of
+    connections over ``state``.
+
+    A pool of ``n_flows`` flows, one client pod each on endpoint
+    ``j % E``, each with a direct destination (an address of a policy
+    prefix on its identity's rule port; a fifth of them in a peer
+    node's pod CIDR) and a service twin (another source port to one
+    service's VIP; flow 0's to the backend-less one).  A batch holds
+    about 59.5% forward egress packets of pool flows and 25% of their
+    service twins (SYN in a flow's first batch, ACK after), 10% ingress
+    replies of flows opened in earlier batches (half of them from the
+    service backend the LB picked), 4% new flows to uniform addresses
+    and ports (mostly denied), 1% ingress packets sourced inside the
+    prefilter's CIDRs, and 0.5% FIN or RST packets that close both
+    connections of a flow, which sends nothing else in that batch and
+    reopens with new source ports in the next.  Lengths 64-1,499."""
+    for rng, cols in _serving_rows(state, batch, n_flows, seed,
+                                   _v4_backends(state)):
+        order = rng.permutation(batch)
+        length = rng.integers(64, 1500, batch)
+        out = np.empty((len(PACKED_FIELDS), batch), np.int32)
+        for i, f in enumerate(PACKED_FIELDS):
+            col = length if f == "length" else cols[f]
+            out[i] = col.astype(np.uint32).view(np.int32)[order]
         yield out
 
 
 V4_T0 = 1_000_000  # the clock of the first batch, seconds
 
 
-class V4Run:
-    """The v4 serving state behind a ``Datapath`` on a device, with its
+class _ServingRun:
+    """A serving state behind a ``Datapath`` on a device, with its
     packet stream and clock: batch ``t`` is served at ``V4_T0 + t``
     seconds, and the CT is garbage-collected every ``V4_GC_EVERY``
-    batches (``advance``).  ``state`` defaults to the full-width
-    ``v4_serving_state()``."""
+    batches (``advance``)."""
 
-    def __init__(self, batch: int, device: DeviceLike = None,
-                 ct_slots: int = 1 << 20, ct_probe: int = 8,
-                 state: V4ServingState = None, n_flows: int = 1 << 16,
-                 seed: int = 5):
+    def __init__(self, batch: int, device: DeviceLike, ct_slots: int,
+                 ct_probe: int):
         self.device = resolve_device(device)
-        self.state = state if state is not None else v4_serving_state()
         self.dp = Datapath(ct_slots=ct_slots, ct_probe=ct_probe,
                            device=self.device)
-        self.state.load(self.dp)
         self.batch = batch
-        self.stream = v4_serving_packets(self.state, batch, n_flows, seed)
+        self.stream: Iterator[np.ndarray] = iter(())
         self.t = 0
 
     @property
@@ -457,15 +482,234 @@ class V4Run:
         return V4_T0 + self.t * V4_SECONDS_PER_BATCH
 
     def next_batch(self) -> np.ndarray:
-        """The stream's next [10, B] int32 batch, on the host."""
+        """The stream's next int32 batch matrix, on the host."""
         return next(self.stream)
-
-    def step(self, packed: torch.Tensor):
-        """``process_packed`` of a [10, B] batch on the device, now."""
-        return self.dp.process_packed(packed, now=self.now)
 
     def advance(self) -> int:
         """Move the clock to the next batch; run the CT GC when it is
         due and return the entries it deleted (0 otherwise)."""
         self.t += 1
         return self.dp.gc(self.now) if self.t % V4_GC_EVERY == 0 else 0
+
+
+class V4Run(_ServingRun):
+    """The v4 serving state and its stream (``v4_serving_packets``)
+    behind a ``Datapath``.  ``state`` defaults to the full-width
+    ``v4_serving_state()``."""
+
+    def __init__(self, batch: int, device: DeviceLike = None,
+                 ct_slots: int = 1 << 20, ct_probe: int = 8,
+                 state: V4ServingState = None, n_flows: int = 1 << 16,
+                 seed: int = 5):
+        super().__init__(batch, device, ct_slots, ct_probe)
+        self.state = state if state is not None else v4_serving_state()
+        self.state.load(self.dp)
+        self.stream = v4_serving_packets(self.state, batch, n_flows, seed)
+
+    def step(self, packed: torch.Tensor):
+        """``process_packed`` of a [10, B] batch on the device, now."""
+        return self.dp.process_packed(packed, now=self.now)
+
+
+# ---------------------------------------------------------------------------
+# The v6 serving state and its traffic
+# ---------------------------------------------------------------------------
+
+ULA_WORD0 = 0xFD000000           # fd00::/96: v4 address a -> fd00::a
+# the node's router (its pods' gateway), inside its pod block
+# fd00::10.127.255.0/120
+ROUTER_V4 = _ip(10, 127, 255, 1)
+# shares of a v6 batch taken out of the forward egress share: NS for
+# the router (every pod resolves its gateway), NS for another address
+# of the pod block, echo requests to the router (health probes)
+V6_ICMP_SHARES = {"ns_router": 0.005, "ns_other": 0.001, "echo": 0.004}
+# rows of the packed v6 batch matrix: addresses and the ND target take
+# four rows each (big-endian words)
+PACKED6_FIELDS = (("endpoint", 1), ("saddr", 4), ("daddr", 4),
+                  ("sport", 1), ("dport", 1), ("proto", 1),
+                  ("direction", 1), ("tcp_flags", 1), ("length", 1),
+                  ("is_fragment", 1), ("icmp_type", 1), ("nd_target", 4))
+PACKED6_ROWS = sum(w for _, w in PACKED6_FIELDS)
+
+
+def embed6(addr) -> np.ndarray:
+    """uint32 v4 addresses [m] -> [m, 4] int64 words of fd00::a."""
+    a = np.asarray(addr, np.int64)
+    out = np.zeros(a.shape + (4,), np.int64)
+    out[..., 0] = ULA_WORD0
+    out[..., 3] = a & 0xFFFFFFFF
+    return out
+
+
+def embed6_cidr(cidr: str) -> str:
+    """"a.b.c.d/p" -> "fd00::a.b.c.d/(96 + p)"."""
+    addr, plen = cidr.split("/")
+    return f"fd00::{addr}/{96 + int(plen)}"
+
+
+def _words6(words) -> Tuple[int, int, int, int]:
+    return tuple(int(w) & 0xFFFFFFFF for w in words)
+
+
+@dataclass
+class V6ServingState:
+    """What the v6 step serves, the twin of ``v4`` (a
+    ``V4ServingState``): the same policy, its prefixes embedded
+    (``prefixes6``), its services embedded (``services6``), its
+    prefilter CIDRs embedded (``prefilter6``) and the node's router
+    address (``router6``)."""
+
+    v4: V4ServingState
+    prefixes6: Dict[str, int]
+    services6: List[Service6]
+    prefilter6: List[str]
+    router6: str
+
+    def load(self, dp: Datapath) -> None:
+        """Program a ``Datapath`` with the v6 state and the shared policy
+        (with the v4 ipcache).  The services go in as copies.  The v4
+        services, prefilter and tunnel map come from ``v4.load``."""
+        dp.load_ipcache6(self.prefixes6)
+        dp.upsert_services6([Service6(vip=s.vip, port=s.port,
+                                      proto=s.proto,
+                                      backends=list(s.backends))
+                             for s in self.services6])
+        dp.prefilter.insert(self.prefilter6)
+        dp.set_router_ip6(self.router6)
+        for slot, ident in enumerate(self.v4.ep_identity):
+            dp.set_endpoint_identity(slot, ident)
+        dp.load_policy(self.v4.states, revision=1,
+                       ipcache_prefixes=self.v4.prefixes)
+
+
+def v6_serving_state(**v4_args) -> V6ServingState:
+    """The v6 serving state, full width by default: ``v6_of`` the
+    ``v4_serving_state`` of the same arguments."""
+    return v6_of(v4_serving_state(**v4_args))
+
+
+def v6_of(v4: V4ServingState) -> V6ServingState:
+    """``v4`` embedded into ``fd00::/96``: the policy prefixes' /16 and
+    /24 become /112 and /120 (the /120 is the per-node pod block of
+    Cilium's cluster-pool IPv6 default), the services keep their
+    backends (the last still has none), the prefilter's /24 and /32
+    become /120 and /128; the router is ``fd00::`` + ``ROUTER_V4``."""
+    services6 = [Service6(
+        vip=_words6(embed6(s.vip)), port=s.port, proto=s.proto,
+        backends=[Backend6(addr=_words6(embed6(b.addr)), port=b.port)
+                  for b in s.backends]) for s in v4.services]
+    r = ROUTER_V4
+    return V6ServingState(
+        v4=v4, prefixes6={embed6_cidr(c): i for c, i in v4.prefixes.items()},
+        services6=services6,
+        prefilter6=[embed6_cidr(c) for c in v4.prefilter],
+        router6=f"fd00::{r >> 24}.{(r >> 16) & 255}.{(r >> 8) & 255}."
+                f"{r & 255}")
+
+
+def _v6_backends(state: V6ServingState):
+    """``_v4_backends`` for the v6 LB: the backend that ``lb6_step``
+    picks (its hash folds the v6 addresses), as the v4 word."""
+    lb = compile_lb6([Service6(vip=s.vip, port=s.port, proto=s.proto,
+                               backends=list(s.backends))
+                      for s in state.services6], device="cpu")
+
+    def pick(vip, vport, client, sport):
+        w = lambda x: torch.as_tensor(  # noqa: E731
+            embed6(x).astype(np.uint32).view(np.int32))
+        i32 = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x).astype(np.int32))
+        back, bport, _, _ = lb6_step(
+            lb.tables, w(vip), i32(vport),
+            torch.full((vip.shape[0],), 6, dtype=torch.int32),
+            w(client), i32(sport), max_probe=lb.max_probe)
+        return (back[:, 3].numpy().view(np.uint32).astype(np.int64),
+                bport.numpy())
+    return pick
+
+
+def v6_serving_packets(state: V6ServingState, batch: int,
+                       n_flows: int = 1 << 16, seed: int = 5
+                       ) -> Iterator[np.ndarray]:
+    """Endless [PACKED6_ROWS, batch] int32 batches (``PACKED6_FIELDS``
+    order; ``unpack6`` makes a ``FullPacketBatch6`` of one): the
+    connection stream of ``v4_serving_packets`` with every address
+    embedded (service replies from the backend the v6 LB picks), and
+    ``V6_ICMP_SHARES`` of the batch, taken out of the forward egress
+    share, ICMPv6 from pool clients: neighbour solicitations for the
+    router and for another address of its pod block, and echo requests
+    to the router."""
+    counts = {k: int(round(v * batch)) for k, v in V6_ICMP_SHARES.items()}
+    n_icmp = sum(counts.values())
+    router = np.array(ipv6_to_words(state.router6), np.int64)
+    # the solicited-node multicast address of the router (ff02::1:ffXX:XXXX)
+    solicited = np.array([0xFF020000, 0, 1, 0xFF000000 |
+                          (int(router[3]) & 0xFFFFFF)], np.int64)
+    n_ep = len(state.v4.ep_identity)
+    for rng, cols in _serving_rows(state.v4, batch, n_flows, seed,
+                                   _v6_backends(state), reserved=n_icmp):
+        m = batch - n_icmp
+        flow = rng.integers(0, n_flows, n_icmp)
+        kind = np.repeat([135, 135, 128], [counts["ns_router"],
+                                           counts["ns_other"],
+                                           counts["echo"]])
+        other = router.copy()
+        other[3] += 1
+        target = np.where((np.arange(n_icmp) < counts["ns_router"])
+                          [:, None], router, other)
+        target[kind == 128] = 0
+        full = {
+            "endpoint": np.r_[cols["endpoint"], flow % n_ep],
+            "saddr": np.r_[embed6(cols["saddr"]),
+                           embed6(POOL_CLIENTS + flow)],
+            "daddr": np.r_[embed6(cols["daddr"]),
+                           np.where((kind == 128)[:, None], router,
+                                    solicited)],
+            "sport": np.r_[cols["sport"], np.zeros(n_icmp, np.int64)],
+            "dport": np.r_[cols["dport"], np.zeros(n_icmp, np.int64)],
+            "proto": np.r_[cols["proto"], np.full(n_icmp, 58)],
+            "direction": np.r_[cols["direction"], np.ones(n_icmp,
+                                                          np.int64)],
+            "tcp_flags": np.r_[cols["tcp_flags"], np.zeros(n_icmp,
+                                                           np.int64)],
+            "is_fragment": np.zeros(batch, np.int64),
+            "icmp_type": np.r_[np.zeros(m, np.int64), kind],
+            "nd_target": np.r_[np.zeros((m, 4), np.int64), target]}
+        order = rng.permutation(batch)
+        full["length"] = rng.integers(64, 1500, batch)
+        out = np.empty((PACKED6_ROWS, batch), np.int32)
+        row = 0
+        for f, width in PACKED6_FIELDS:
+            col = full[f].astype(np.uint32).view(np.int32)[order]
+            out[row:row + width] = col.T if width > 1 else col
+            row += width
+        yield out
+
+
+def unpack6(packed: torch.Tensor) -> FullPacketBatch6:
+    """A ``FullPacketBatch6`` of views into one [PACKED6_ROWS, B] int32
+    matrix (addresses as [B, 4] transposed views)."""
+    fields, row = {}, 0
+    for f, width in PACKED6_FIELDS:
+        fields[f] = packed[row:row + width].T if width > 1 else packed[row]
+        row += width
+    return FullPacketBatch6(**fields)
+
+
+class V6Run(_ServingRun):
+    """The v6 serving state and its stream (``v6_serving_packets``)
+    behind a ``Datapath``, served through ``process6``.  ``state``
+    defaults to the full-width ``v6_serving_state()``."""
+
+    def __init__(self, batch: int, device: DeviceLike = None,
+                 ct_slots: int = 1 << 20, ct_probe: int = 8,
+                 state: V6ServingState = None, n_flows: int = 1 << 16,
+                 seed: int = 5):
+        super().__init__(batch, device, ct_slots, ct_probe)
+        self.state = state if state is not None else v6_serving_state()
+        self.state.load(self.dp)
+        self.stream = v6_serving_packets(self.state, batch, n_flows, seed)
+
+    def step(self, packed: torch.Tensor):
+        """``process6`` of a [PACKED6_ROWS, B] batch on the device, now."""
+        return self.dp.process6(unpack6(packed), now=self.now)

@@ -5,7 +5,7 @@ reference's bit for bit (tolerance 0), including a backend-less service
 compiled last, whose backend index lies one past the backend arrays
 (JAX clamps it; the port clips it).  The backend selection helper is
 held against ``jnp.abs(h) % n`` at the edges of int32.  ``PreFilter``
-insert / delete / dump / drop_mask match the reference's.
+insert / delete / dump / drop_mask / drop_mask6 match the reference's.
 """
 
 import functools
@@ -224,7 +224,14 @@ def test_prefilter_matches_reference():
     got = port_f.drop_mask(torch.as_tensor(src))
     np.testing.assert_array_equal(want, got.numpy())
     assert 0 < int(got.sum()) < b
-    with pytest.raises(NotImplementedError, match="v6"):
-        port_f.drop_mask6(torch.zeros((4, 4), dtype=torch.int32))
+    # the v6 set left after the delete: fd00::1/128
+    src6 = np.zeros((4, 4), np.uint32)
+    src6[:, 0] = 0xFD000000
+    src6[:, 3] = [1, 2, 1, 0]
+    src6 = src6.view(np.int32)
+    want6 = np.asarray(ref_f.drop_mask6(jnp.asarray(src6)))
+    got6 = port_f.drop_mask6(torch.as_tensor(src6))
+    np.testing.assert_array_equal(want6, got6.numpy())
+    assert got6.tolist() == [True, False, True, False]
     empty = prefilter.PreFilter()
     assert not bool(empty.drop_mask(torch.as_tensor(src)).any())
