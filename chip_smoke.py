@@ -75,8 +75,31 @@ script exits non-zero:
    traffic): parity with flows and provenance on, the tables' bytes on
    the card, and the no-host-read check, timing and profile with the
    flow table off and on.
-7. the kernels line, the card's name and power limit from nvidia-smi,
-   and a last line ``{"ok": true, "device": {...}}``.
+7. config2: BASELINE config 2 (``workloads.build_config2``: 10,000
+   endpoints x 1,000 exact INGRESS rules, 10M entries, 256 buckets of 8
+   slots an endpoint) on the two-choice ``BucketVerdictEngine`` at
+   B = 2**20, the identity-l4 bench's traffic (half installed keys, half
+   misses).  The host build time and table sizes; the card against the
+   same engine on the CPU over 3 batches (every verdict, both counter
+   arrays after each); the flat-array oracle on 4,096 packets; a
+   smaller mixed-kind case (exact, L3-only and wildcard entries with
+   proxy ports, fragments, wrapping byte counters) card against CPU and
+   the map-state oracle; the no-host-read check (``no_host_read``);
+   CUDA-event timing of 60 batches and a profile.
+8. l7: BASELINE configs 3-5 at ``bench_suite.py``'s shapes.  HTTP (4
+   rules, 6 paths x 3 methods) and FQDN (3 selectors) at the bench
+   batch (32,768) and at 2**20 rows: each engine on the card against a
+   CPU twin built with the card's selection, on every row, and Python
+   ``re`` (``oracle_match``) on a sample; the host ``encode_packed``
+   time; ``match_device`` on pre-encoded blocks already on the card:
+   no host read, CUDA-event timing, profile.  Header rules and long
+   payloads at the default batch hint (the card selects ``assoc``),
+   and every ``DFAEngine`` strategy x dtype, card against CPU.  Kafka
+   ACLs run on the host only; their host rate is printed as such.
+9. the kernels line (the dense kernel's launches on the config-2 and L7
+   paths, 0, beside those of v4 and v6), the card's name and power
+   limit from nvidia-smi, and a last line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -93,19 +116,36 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from cilium_tpu_torch import kernels, sass_mix
+from cilium_tpu_torch.compiler.bucket_tables import compile_states_bucketed
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, oracle_lpm_u32,
                                            parse_prefixes)
 from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
+from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
+                                              oracle_match)
 from cilium_tpu_torch.datapath import conntrack, engine, events
 from cilium_tpu_torch.datapath.codes import VERDICT_DROP, WORLD_IDENTITY
 from cilium_tpu_torch.datapath.pipeline import PACKED_FIELDS
 from cilium_tpu_torch.device import cuda_ms, nvidia_smi, probe
+from cilium_tpu_torch.l7.dns import DNSPolicyEngine
+from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
+                                      rule_to_combined_regex)
+from cilium_tpu_torch.l7.http import request_line as http_request_line
+from cilium_tpu_torch.l7.kafka import KafkaPolicyEngine
 from cilium_tpu_torch.ops import dense_verdict as dv
+from cilium_tpu_torch.ops.bucket_ops import BucketVerdictEngine
+from cilium_tpu_torch.ops.dfa_engine import DFAEngine
+from cilium_tpu_torch.policy.api import PortRuleHTTP
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
-from cilium_tpu_torch.profile_config1 import V4_WARMUP, profile_run
-from cilium_tpu_torch.workloads import (TRAFFICS, V4_T0,
-                                        Config1Run, V4Run, V6Run, unpack6,
+from cilium_tpu_torch.profile_config1 import (V4_WARMUP, profile_run,
+                                              profile_step)
+from cilium_tpu_torch.workloads import (CONFIG2_FIELDS, FQDN_SELECTORS,
+                                        HTTP_RULES, KAFKA_RULES, TRAFFICS,
+                                        V4_T0, Config1Run, Config2Run,
+                                        V4Run, V6Run, build_config2,
+                                        config3_requests, config4_requests,
+                                        config5_names, mixed_bucket_packets,
+                                        mixed_bucket_states, unpack6,
                                         v4_serving_packets,
                                         v4_serving_state, v6_of,
                                         v6_serving_packets)
@@ -955,6 +995,373 @@ def phase_v6(dev, state4) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: BASELINE config 2 on the bucket engine
+# ---------------------------------------------------------------------------
+
+CONFIG2_STATE = {}      # build_config2() arguments: the full BASELINE width
+CONFIG2_BATCH = 1 << 20
+CONFIG2_PARITY_BATCHES = 3
+CONFIG2_TIMED = 60
+MIXED_STATE = (256, 200)  # endpoints x entries of the mixed-kind case
+MIXED_BATCH = 1 << 16
+
+
+class _Call:
+    """A no-argument call as a ``run`` for ``behind_sleep``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def step(self, _batch):
+        return self.fn()
+
+
+def no_host_read(fn) -> dict:
+    """``fn`` (a step on inputs already on the card) makes no host read:
+    it raises nothing under ``set_sync_debug_mode("error")``, and behind
+    a ``torch.cuda._sleep`` it returns on the host before the sleep ends
+    with no synchronising or copying CUDA runtime call (these steps
+    launch far fewer kernels than the launch queue holds)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    end.record()
+    end.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    probe = behind_sleep(_Call(fn), None)
+    probe["sleep_ms"] = sleep_ms
+    probe["returned_before_sleep_ended"] = probe["host_ms"] < sleep_ms
+    if probe["host_waits"] or not probe["returned_before_sleep_ended"]:
+        raise AssertionError(f"the step may read the card: {probe}")
+    return {"sync_debug_mode": "error", "raised": False, **probe}
+
+
+def timing(ms, rows: int) -> dict:
+    return {"samples": len(ms), "median_batch_ms": float(np.median(ms)),
+            "p99_batch_ms": float(np.percentile(ms, 99)),
+            "max_batch_ms": float(max(ms)),
+            "rows_per_s": rows / (float(np.median(ms)) / 1e3),
+            "name_power_limit": nvidia_smi("name,power.limit")}
+
+
+def bucket_mismatches(got, want, eng_g, eng_c) -> dict:
+    """Differing verdicts of one step, and differing entries of both
+    counter arrays, between the card's engine and the CPU's."""
+    return {"verdict": int((got.cpu() != want).sum()),
+            "packets": int((eng_g.counters.packets.cpu() !=
+                            eng_c.counters.packets).sum()),
+            "bytes": int((eng_g.counters.bytes.cpu() !=
+                          eng_c.counters.bytes).sum())}
+
+
+def bucket_bytes_bound_ms(run) -> float:
+    """Least time for the bucket step's bytes: per packet its 7 input
+    words read and its verdict written, 3 stages x 2 bucket rows x 3
+    table words x W slots read, and two counter words read and
+    written."""
+    w = run.engine.width
+    per_packet = 4 * (7 + 1 + 3 * 2 * 3 * w + 2 * 2)
+    return run.batch * per_packet / HBM_BYTES_PER_S * 1e3
+
+
+def phase_config2(dev) -> int:
+    """BASELINE config 2 (10,000 endpoints x 1,000 exact INGRESS rules,
+    10M entries) on the two-choice bucket engine at B = 2**20; returns
+    the dense kernel's launches during it (the path runs none)."""
+    dv.dense_verdict.launches = 0
+    t0 = time.perf_counter()
+    state = build_config2(**CONFIG2_STATE)
+    gen_s = time.perf_counter() - t0 - state.build_s
+    torch.cuda.reset_peak_memory_stats()
+    run = Config2Run(CONFIG2_BATCH, dev, state=state)
+    cpu = BucketVerdictEngine(state.tables, device="cpu")
+    torch.cuda.synchronize()
+    tables = state.tables
+    emit("config2-state", endpoints=tables.num_endpoints,
+         rules_per_ep=int(state.ident.shape[1]),
+         entries=tables.entry_count(), buckets_per_ep=tables.buckets_per_ep,
+         width=tables.width, slots=int(tables.key_a.size),
+         table_mb=tables.nbytes() / 1e6,
+         counters_mb=(run.engine.nbytes() - tables.nbytes()) / 1e6,
+         build_s=state.build_s, generate_s=gen_s)
+
+    # the card against the same engine on the CPU, 3 batches
+    total = {}
+    first = run.packets(seed=4)
+    for k in range(CONFIG2_PARITY_BATCHES):
+        host = first if k == 0 else run.packets(seed=4 + k)
+        got = run.step(run.to_device(host))
+        want = cpu(*[torch.as_tensor(host[f]) for f in CONFIG2_FIELDS])
+        torch.cuda.synchronize()
+        mism = bucket_mismatches(got, want, run.engine, cpu)
+        for name, bad in mism.items():
+            total[name] = total.get(name, 0) + bad
+        emit("config2-parity", batch_index=k, b=CONFIG2_BATCH,
+             mismatches=mism, allowed=int((want == 0).sum()),
+             dropped=int((want == VERDICT_DROP).sum()))
+        if any(mism.values()):
+            raise AssertionError(f"config2: card != CPU at batch {k}: {mism}")
+    counted = int(run.engine.counters.packets.sum(dtype=torch.int64))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # the flat-array oracle on a sample of the first batch
+    verdict = run.step(run.to_device(first)).cpu().numpy()
+    idx = np.linspace(0, CONFIG2_BATCH - 1, ORACLE_SAMPLE).astype(int)
+    bad = [int(i) for i in idx if verdict[i] != state.oracle_verdict(
+        *(int(first[f][i]) for f in ("endpoint", "identity", "dport",
+                                     "proto", "direction", "is_fragment")))]
+    if bad:
+        raise AssertionError(f"config2: {len(bad)} oracle mismatches, "
+                             f"first at packet {bad[0]}")
+
+    mixed = phase_config2_mixed(dev)
+
+    pkts = run.to_device(run.packets(seed=9))
+    sync = no_host_read(lambda: run.step(pkts))
+    ms = cuda_ms(lambda: run.step(pkts), CONFIG2_TIMED)
+    prof = profile_step(lambda: run.step(pkts), 5)
+    res = {"batch": CONFIG2_BATCH, **timing(ms, CONFIG2_BATCH),
+           "peak_gb": peak_gb, "counted_packets": counted,
+           "oracle_sample": len(idx), "oracle_mismatches": 0,
+           "parity_mismatches": total,
+           "bytes_bound_ms": bucket_bytes_bound_ms(run)}
+    emit("config2-sync", **sync)
+    emit("config2-profile", batch=CONFIG2_BATCH, **prof)
+    launches = dv.dense_verdict.launches
+    emit("config2", **res, mixed=mixed,
+         hand_kernel_launches={"dense_verdict": launches})
+    return launches
+
+
+def phase_config2_mixed(dev) -> dict:
+    """Exact, L3-only and L4-wildcard entries with proxy ports, both
+    directions, 10% fragments and byte counters that wrap: the stages
+    the config-2 traffic never reaches.  Card against CPU over 3
+    batches, and the map-state oracle on a sample."""
+    states = mixed_bucket_states(*MIXED_STATE, seed=11)
+    tables = compile_states_bucketed(states, revision=1)
+    gpu = BucketVerdictEngine(tables, device=dev)
+    cpu = BucketVerdictEngine(tables, device="cpu")
+    total, verdicts = {}, {}
+    for k in range(3):
+        host = mixed_bucket_packets(states, MIXED_BATCH, seed=30 + k)
+        got = gpu(*[torch.as_tensor(host[f], device=dev)
+                    for f in CONFIG2_FIELDS])
+        want = cpu(*[torch.as_tensor(host[f]) for f in CONFIG2_FIELDS])
+        torch.cuda.synchronize()
+        mism = bucket_mismatches(got, want, gpu, cpu)
+        for name, bad in mism.items():
+            total[name] = total.get(name, 0) + bad
+        if any(mism.values()):
+            raise AssertionError(f"config2 mixed: card != CPU at {k}: {mism}")
+        codes, counts = torch.unique(want, return_counts=True)
+        for c, n in zip(codes.tolist(), counts.tolist()):
+            verdicts[str(c)] = verdicts.get(str(c), 0) + n
+        for i in range(0, MIXED_BATCH, MIXED_BATCH // 512):
+            if host["is_fragment"][i]:
+                continue
+            want_i = oracle_verdict(
+                states[host["endpoint"][i]], int(host["identity"][i]),
+                int(host["dport"][i]), int(host["proto"][i]),
+                int(host["direction"][i]))
+            if int(want[i]) != want_i:
+                raise AssertionError(f"config2 mixed: oracle at {k}/{i}")
+    for code in ("-2", "-1", "0", "15001"):
+        if not verdicts.get(code):
+            raise AssertionError(f"config2 mixed: no verdict {code}")
+    return {"endpoints": MIXED_STATE[0], "entries": tables.entry_count(),
+            "batches": 3, "b": MIXED_BATCH, "mismatches": total,
+            "verdicts": verdicts}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: BASELINE configs 3-5, the L7 engines
+# ---------------------------------------------------------------------------
+
+L7_BATCHES = (32768, 1 << 20)   # the bench's batch, and 2**20 rows
+L7_TIMED = 50
+L7_SMALL = 4096                 # the header, long-payload and sweep cases
+HEADER_RULES = (PortRuleHTTP(method="GET", path="/api/.*",
+                             headers=("X-Token abc.1",)),
+                PortRuleHTTP(method="POST", path="/upload",
+                             headers=("Content-Type", "x-req-id 7")),
+                PortRuleHTTP(method="DELETE"))
+
+
+def _l7_rows(name, gpu, cpu, sample_oracle, encode, match, batch) -> dict:
+    """One L7 engine on the card against its twin on the CPU (built with
+    the card's selection) over every row, the Python ``re`` oracle on a
+    sample, the host encode time, then ``match`` on pre-encoded blocks
+    already on the card: no host read, CUDA-event timing, profile."""
+    if gpu.engine_report() != cpu.engine_report():
+        raise AssertionError(f"{name}: CPU twin selects otherwise")
+    t0 = time.perf_counter()
+    enc = encode(gpu)
+    encode_s = time.perf_counter() - t0
+    got = match(gpu, enc).cpu()
+    want = match(cpu, enc)
+    mism = int((got != want).sum())
+    if mism:
+        raise AssertionError(f"{name} at {batch}: {mism} card != CPU rows")
+    oracle_bad = sample_oracle(got.numpy())
+    if oracle_bad:
+        raise AssertionError(f"{name} at {batch}: {oracle_bad} oracle "
+                             "mismatches")
+    on_card = tuple(None if e is None else e.to(gpu.device) for e in enc)
+    sync = no_host_read(lambda: match(gpu, on_card))
+    ms = cuda_ms(lambda: match(gpu, on_card), L7_TIMED)
+    prof = profile_step(lambda: match(gpu, on_card), 5)
+    res = {"engine": name, "batch": batch, "rows": int(got.shape[0]),
+           "allowed": int(got.reshape(got.shape[0], -1).any(1).sum()),
+           "mismatches": mism, "oracle_mismatches": 0,
+           "encode_packed_s": encode_s,
+           "encode_rows_per_s": batch / encode_s,
+           **timing(ms, batch), "describe": gpu.engine_report()}
+    emit("l7-sync", engine=name, batch=batch, **sync)
+    emit("l7-profile", engine=name, batch=batch, **prof)
+    emit("l7", **res)
+    return res
+
+
+def _http_oracle(reqs, patterns):
+    def check(got) -> int:
+        idx = np.linspace(0, len(reqs) - 1, ORACLE_SAMPLE).astype(int)
+        return sum(bool(got[i]) != any(
+            oracle_match(p, http_request_line(reqs[i]).encode())
+            for p in patterns) for i in idx)
+    return check
+
+
+def _dns_oracle(names, selectors):
+    def check(got) -> int:
+        idx = np.linspace(0, len(names) - 1, ORACLE_SAMPLE).astype(int)
+        return sum(bool(got[i].any()) != any(
+            oracle_match(s.to_regex(), names[i].lower().rstrip(".")
+                         .encode()) for s in selectors) for i in idx)
+    return check
+
+
+def _http_case(name, rules, reqs, batch_hint, dev) -> dict:
+    """An HTTP rule set on the card against the CPU twin, whole batch."""
+    gpu = HTTPPolicyEngine(rules, batch_hint=batch_hint, device=dev)
+    cpu = HTTPPolicyEngine(rules, batch_hint=batch_hint, device="cpu",
+                           on_accel=gpu.device.type == "cuda")
+    if gpu.engine_report() != cpu.engine_report():
+        raise AssertionError(f"{name}: CPU twin selects otherwise")
+    got, want = gpu.check(reqs), cpu.check(reqs)
+    mism = int((got != want).sum())
+    if mism or not 0 < want.sum() < len(reqs):
+        raise AssertionError(f"{name}: {mism} mismatches, "
+                             f"{int(want.sum())} allowed")
+    return {"case": name, "rows": len(reqs), "mismatches": mism,
+            "allowed": int(want.sum()), "describe": gpu.engine_report()}
+
+
+def _strategy_sweep(dev) -> list:
+    """Every strategy x dtype of ``DFAEngine`` over the config-3 table on
+    the card, against the same engine on the CPU."""
+    compiled = compile_regex_set([rule_to_combined_regex(r)
+                                  for r in HTTP_RULES])
+    data = HTTPPolicyEngine(list(HTTP_RULES), device="cpu").encode(
+        config3_requests(L7_SMALL))[0]
+    out = []
+    for prefer in ("stride", "compose", "assoc"):
+        for dtype in (np.int8, np.int16, np.int32):
+            kw = dict(max_len=512, prefer=prefer, dtype=dtype,
+                      stride_budget=200_000)
+            gpu = DFAEngine(compiled, device=dev, **kw)
+            cpu = DFAEngine(compiled, device="cpu", **kw)
+            want = cpu.match(data)
+            mism = int((gpu.match(data).cpu() != want).sum()) + int(
+                (gpu.match_encoded(gpu.encode(data).to(dev)).cpu() !=
+                 want).sum())
+            if mism:
+                raise AssertionError(f"DFAEngine {prefer}/{dtype}: {mism}")
+            out.append({"tag": gpu.describe()["tag"], "mismatches": mism})
+    return out
+
+
+def phase_l7(dev) -> int:
+    """BASELINE configs 3-5 (``bench_suite.py``'s http-regex, kafka-acl
+    and fqdn shapes); returns the dense kernel's launches during it."""
+    dv.dense_verdict.launches = 0
+    card = dev.type == "cuda"   # each CPU twin takes the card's selection
+    results = []
+    for batch in L7_BATCHES:
+        reqs = config3_requests(batch)
+        gpu = HTTPPolicyEngine(list(HTTP_RULES), batch_hint=batch,
+                               device=dev)
+        cpu = HTTPPolicyEngine(list(HTTP_RULES), batch_hint=batch,
+                               device="cpu", on_accel=card)
+        patterns = [rule_to_combined_regex(r) for r in HTTP_RULES]
+        results.append(_l7_rows(
+            "http", gpu, cpu, _http_oracle(reqs, patterns),
+            lambda e: e.encode_packed(reqs),
+            lambda e, enc: e.match_device(*enc)[:batch], batch))
+
+        names = config5_names(batch)
+        gpu = DNSPolicyEngine(list(FQDN_SELECTORS), batch_hint=batch,
+                              device=dev)
+        cpu = DNSPolicyEngine(list(FQDN_SELECTORS), batch_hint=batch,
+                              device="cpu", on_accel=card)
+        results.append(_l7_rows(
+            "fqdn", gpu, cpu, _dns_oracle(names, FQDN_SELECTORS),
+            lambda e: (e.encode_packed(names),),
+            lambda e, enc: e.match_device(enc[0])[:batch], batch))
+
+    # the card's own choice where it differs from the bench's: header
+    # rules and long payloads select assoc at the default batch hint
+    rng = np.random.default_rng(12)
+    hdrs = [None, {"X-Token": "abc.1"}, {"Content-Type": "json",
+                                         "X-Req-Id": "7"},
+            {"x-token": "abc.2"}, {"content-type": "json"}]
+    header_reqs = [HTTPRequest(
+        method=("GET", "POST", "DELETE", "PUT")[i % 4],
+        path=("/api/v1", "/upload", "/x")[i % 3],
+        headers=hdrs[rng.integers(0, len(hdrs))]) for i in range(L7_SMALL)]
+    long_reqs = [HTTPRequest(method="GET", path="/public/" + "p" * int(n),
+                             host="admin.example.com")
+                 for n in rng.integers(200, 520, L7_SMALL)]
+    cases = [_http_case("http-headers", list(HEADER_RULES), header_reqs,
+                        2048, dev),
+             _http_case("http-long-payload", list(HTTP_RULES), long_reqs,
+                        2048, dev)]
+    strategies = {c["describe"][part]["strategy"] for c in cases
+                  for part in c["describe"]}
+    if card and "assoc" not in strategies:
+        raise AssertionError(f"no assoc case on the card: {strategies}")
+    for case in cases:
+        emit("l7-case", **case)
+    sweep = _strategy_sweep(dev)
+    emit("l7-sweep", engines=sweep)
+
+    # config 4: Kafka ACLs run on the host only
+    kafka = KafkaPolicyEngine(list(KAFKA_RULES))
+    kreqs = config4_requests(8192)
+    kafka.check(kreqs)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        verdicts = kafka.check(kreqs)
+    kafka_s = (time.perf_counter() - t0) / 10
+    emit("l7-kafka", device="host (no device work)", batch=len(kreqs),
+         allowed=sum(verdicts), batch_s=kafka_s,
+         requests_per_s=len(kreqs) / kafka_s)
+    launches = dv.dense_verdict.launches
+    emit("l7-summary", hand_kernel_launches={"dense_verdict": launches},
+         **{f"{r['engine']}_{r['batch']}_median_ms": r["median_batch_ms"]
+            for r in results})
+    return launches
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1002,6 +1409,8 @@ def main() -> int:
 
     v4_launches, state4 = phase_v4(dev)
     v6_launches = phase_v6(dev, state4)
+    config2_launches = phase_config2(dev)
+    l7_launches = phase_l7(dev)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -1032,6 +1441,8 @@ def main() -> int:
         "grouping_share": main_b["grouping_share"],
         "v4_path_launches": v4_launches,
         "v6_path_launches": v6_launches,
+        "config2_path_launches": config2_launches,
+        "l7_path_launches": l7_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -7,7 +7,8 @@ of ``DatapathTables``, ``Counters``, ``DenseTables``, ``DenseLPM``,
 ``device``.  Leaves must be 32-bit integers; uint32 leaves (the
 counters) become int32 views of the same bits.  The engine's packed
 counters ([2, E*S] uint32), conntrack snapshots (the per-field npz
-layout) and the Hubble flow table have their own hand-overs.
+layout), the Hubble flow table, the bucket engine's counters and a
+compiled regex set have their own hand-overs.
 """
 
 from __future__ import annotations
@@ -17,12 +18,14 @@ from typing import Dict, NamedTuple, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .compiler.regexc import CompiledRegexSet
 from .datapath.conntrack import ConntrackTable
 from .datapath.lb import LB6Tables
 from .datapath.pipeline import DatapathTables, LPM6Tables
 from .datapath.verdict import Counters
 from .device import DeviceLike, resolve_device
 from .hubble.aggregation import FlowState
+from .ops.bucket_ops import BucketCounters
 from .ops.dense_verdict import DenseLPM, DenseTables
 
 Leaves = Optional[Dict[str, np.ndarray]]
@@ -126,3 +129,45 @@ def flows_to_jax(state: FlowState) -> Tuple[np.ndarray, np.ndarray]:
     arrays in the reference's layout."""
     return (state.keys.cpu().numpy().copy(),
             state.counters.cpu().numpy().view(np.uint32).copy())
+
+
+def bucket_counters_from_jax(packets: np.ndarray, bytes_: np.ndarray,
+                             device: DeviceLike = None) -> BucketCounters:
+    """The reference bucket engine's counters ([E*NB*W] uint32 each, as
+    numpy arrays) -> the port's wrapping int32 counters on ``device``."""
+    dev = resolve_device(device)
+    out = []
+    for name, arr in (("packets", packets), ("bytes", bytes_)):
+        arr = np.ascontiguousarray(arr)
+        if arr.ndim != 1 or arr.dtype not in (np.int32, np.uint32):
+            raise ValueError(f"{name}: expected a 1-D 32-bit array, got "
+                             f"{arr.dtype} {arr.shape}")
+        out.append(torch.as_tensor(arr.view(np.int32).copy(), device=dev))
+    return BucketCounters(*out)
+
+
+def bucket_counters_to_jax(counters: BucketCounters
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """The port's bucket counters -> (packets, bytes) uint32 numpy
+    arrays, the reference's layout."""
+    return tuple(c.cpu().numpy().view(np.uint32).copy() for c in counters)
+
+
+def compiled_regex_from_jax(table: np.ndarray, accept: np.ndarray,
+                            starts: np.ndarray,
+                            patterns: Tuple[str, ...] = ()
+                            ) -> CompiledRegexSet:
+    """The reference's compiled regex set (``table`` [S, 256] int32,
+    ``accept`` [S] bool, ``starts`` [R] int32) -> the port's, so that
+    one package's tables can feed the other's engines."""
+    table = np.ascontiguousarray(table, np.int32)
+    accept = np.ascontiguousarray(accept, bool)
+    starts = np.ascontiguousarray(starts, np.int32)
+    if table.ndim != 2 or table.shape[1] != 256 or \
+            accept.shape != (table.shape[0],) or starts.ndim != 1:
+        raise ValueError(f"expected table [S, 256], accept [S], starts "
+                         f"[R]; got {table.shape}, {accept.shape}, "
+                         f"{starts.shape}")
+    return CompiledRegexSet(table=table, accept=accept, starts=starts,
+                            num_states=table.shape[0],
+                            patterns=tuple(patterns))

@@ -1,9 +1,9 @@
 """Device resolution, a small probe of the card, and CUDA-event timing.
 
 Twin of the engine list in ``cilium_tpu/utils/platform.py``: the port
-has two verdict engines, ``hash`` and ``dense``; on a CUDA device the
-dense engine's verdict stage is the hand-written kernel
-``csrc/dense_verdict.cu``.
+has three verdict engines, ``hash``, ``dense`` and the at-scale
+two-choice ``bucket`` engine; on a CUDA device the dense engine's
+verdict stage is the hand-written kernel ``csrc/dense_verdict.cu``.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def probe() -> Dict:
                      .multi_processor_count,
                      name_power_limit=nvidia_smi("name,power.limit"),
                      max_sm_clock=nvidia_smi("clocks.max.sm"))
-    feats["verdict_engines"] = ["hash", "dense"] + \
+    feats["verdict_engines"] = ["hash", "dense", "bucket"] + \
         (["dense-cuda"] if feats["cuda_available"] else [])
     return feats
 

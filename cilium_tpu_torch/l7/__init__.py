@@ -1,0 +1,1 @@
+"""L7 policy engines: HTTP and DNS on the device, Kafka on the host."""

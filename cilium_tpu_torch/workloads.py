@@ -20,29 +20,46 @@ twin: every v4 address ``a`` becomes ``fd00::a`` (the v4 word in the low
 32 bits of the ULA ``fd00::/96``), prefixes grow by 96 bits, and 1% of a
 batch is ICMPv6 for the node's router (neighbour solicitations and echo
 requests).
+
+``build_config2`` / ``config2_packets`` / ``Config2Run`` are BASELINE
+config 2 (identity-label L4 at 10,000 endpoints x 1,000 rules, the port's
+copy of ``bench_suite.py``'s identity-l4 tables and traffic) on the
+two-choice bucket engine; ``mixed_bucket_states`` / ``mixed_bucket_packets``
+add the entry kinds and fragments that traffic never reaches.
+``HTTP_RULES``, ``KAFKA_RULES``, ``FQDN_SELECTORS`` and the
+``config{3,4,5}_*`` request makers are the L7 rule sets and requests of
+BASELINE configs 3-5 (``bench_suite.py``'s http-regex, kafka-acl and
+fqdn benches).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
+from .compiler.bucket_tables import BucketTables, build_bucket_tables
 from .compiler.lpm import compile_lpm, ipv6_to_words, parse_prefixes
-from .compiler.policy_tables import compile_endpoints
+from .compiler.policy_tables import compile_endpoints, pack_meta
 from .datapath import conntrack
+from .datapath.codes import VERDICT_ALLOW, VERDICT_DROP, VERDICT_DROP_FRAG
 from .datapath.engine import Datapath
 from .datapath.lb import (Backend, Backend6, Service, Service6, compile_lb,
                           compile_lb6, lb6_step, lb_step)
 from .datapath.pipeline import (PACKED_FIELDS, FullPacketBatch6,
                                 RawPacketBatch, make_step)
 from .device import DeviceLike, resolve_device
+from .l7.http import HTTPRequest
+from .l7.kafka import KafkaRequest
+from .ops.bucket_ops import BucketVerdictEngine
 from .ops.dense_verdict import (compile_dense, compile_dense_lpm,
                                 dense_datapath_step, dense_segments)
 from .ops.lpm_ops import lpm_lookup
-from .policy.mapstate import (EGRESS, PolicyKey, PolicyMapState,
+from .policy.api import FQDNSelector, PortRuleHTTP, PortRuleKafka
+from .policy.mapstate import (EGRESS, INGRESS, PolicyKey, PolicyMapState,
                               PolicyMapStateEntry)
 
 
@@ -713,3 +730,217 @@ class V6Run(_ServingRun):
     def step(self, packed: torch.Tensor):
         """``process6`` of a [PACKED6_ROWS, B] batch on the device, now."""
         return self.dp.process6(unpack6(packed), now=self.now)
+
+
+# ---------------------------------------------------------------------------
+# Config 2: identity-label L4 at scale, on the bucket engine
+# ---------------------------------------------------------------------------
+
+# packet columns of the bucket engine's call, in its argument order
+CONFIG2_FIELDS = ("endpoint", "identity", "dport", "proto", "direction",
+                  "length", "is_fragment")
+
+
+@dataclass
+class Config2State:
+    """BASELINE config 2: ``rules_per_ep`` exact INGRESS TCP keys per
+    endpoint, as [E, R] uint32 identity and meta words (all values 0:
+    allow), and the bucket tables built from them (``build_s`` host
+    seconds)."""
+
+    ident: np.ndarray
+    meta: np.ndarray
+    tables: BucketTables
+    build_s: float
+
+    @property
+    def ep_col(self) -> np.ndarray:
+        """[E*R] endpoint of each flat entry."""
+        e, r = self.ident.shape
+        return np.repeat(np.arange(e, dtype=np.int64), r)
+
+    def oracle_verdict(self, endpoint: int, identity: int, dport: int,
+                       proto: int, direction: int, frag: int) -> int:
+        """One packet's verdict from the endpoint's flat entries (the
+        3-stage chain of ``policy_tables.oracle_verdict``; every value
+        of this state is 0)."""
+        ids = self.ident[endpoint]
+        metas = self.meta[endpoint]
+        ident = identity & 0xFFFFFFFF
+        exact = pack_meta(dport, proto, direction)
+        if not frag and ((ids == ident) & (metas == exact)).any():
+            return VERDICT_ALLOW
+        if ((ids == ident) & (metas == pack_meta(0, 0, direction))).any():
+            return VERDICT_ALLOW
+        if not frag and ((ids == 0) & (metas == exact)).any():
+            return VERDICT_ALLOW
+        return VERDICT_DROP_FRAG if frag else VERDICT_DROP
+
+
+def build_config2(n_endpoints: int = 10_000, rules_per_ep: int = 1_000,
+                  seed: int = 3) -> Config2State:
+    """The port's copy of ``bench_suite.py:_make_policy_tables``: random
+    identities, ports distinct within each endpoint (stride 61, coprime
+    to 65535) so the (identity, port) keys are unique, INGRESS TCP meta
+    words, all built as flat arrays."""
+    rng = np.random.default_rng(seed)
+    ident = rng.integers(256, 1 << 22,
+                         (n_endpoints, rules_per_ep)).astype(np.uint32)
+    ports = 1 + (np.arange(rules_per_ep, dtype=np.uint32)[None, :] * 61
+                 + rng.integers(0, 65535, (n_endpoints, 1))) % 65535
+    meta = ((ports << 16) | (6 << 8) | (INGRESS << 1) | 1).astype(
+        np.uint32)
+    ep_col = np.repeat(np.arange(n_endpoints, dtype=np.int64), rules_per_ep)
+    t0 = time.perf_counter()
+    tables = build_bucket_tables(
+        ep_col, ident.ravel(), meta.ravel(),
+        np.zeros(n_endpoints * rules_per_ep, np.int32),
+        num_endpoints=n_endpoints, revision=1)
+    return Config2State(ident=ident, meta=meta, tables=tables,
+                        build_s=time.perf_counter() - t0)
+
+
+def config2_packets(state: Config2State, batch: int, seed: int = 4
+                    ) -> Dict[str, np.ndarray]:
+    """The traffic of ``bench_suite.py:bench_identity_l4``: half the
+    packets on installed exact keys, half random misses; TCP ingress,
+    256-byte packets, no fragments.  All [batch] int32."""
+    rng = np.random.default_rng(seed)
+    e = state.ident.shape[0]
+    sel = rng.integers(0, state.ident.size, batch)
+    hit = rng.random(batch) < 0.5
+    pep = np.where(hit, state.ep_col[sel], rng.integers(0, e, batch))
+    pid = np.where(hit, state.ident.ravel()[sel].view(np.int32),
+                   rng.integers(256, 1 << 22, batch))
+    key_port = (state.meta.ravel()[sel] >> 16).astype(np.int32)
+    dpt = np.where(hit, key_port, rng.integers(1, 65536, batch))
+    cols = {"endpoint": pep, "identity": pid, "dport": dpt,
+            "proto": np.full(batch, 6), "direction": np.zeros(batch),
+            "length": np.full(batch, 256), "is_fragment": np.zeros(batch)}
+    return {k: v.astype(np.int32) for k, v in cols.items()}
+
+
+def mixed_bucket_states(n_endpoints: int, per_ep: int, seed: int
+                        ) -> List[PolicyMapState]:
+    """Map states of all three entry kinds (exact with proxy ports,
+    L3-only, L4-wildcard), both directions, so every stage of the
+    bucket verdict hits (the states of the reference's bucket tests)."""
+    rng = np.random.default_rng(seed)
+    states = []
+    for _ in range(n_endpoints):
+        st = PolicyMapState()
+        for ident in rng.choice(np.arange(256, 5000), per_ep, replace=False):
+            kind = rng.integers(0, 3)
+            d = int(rng.integers(0, 2))
+            if kind == 0:
+                st[PolicyKey(identity=int(ident),
+                             dest_port=int(rng.integers(1, 65536)),
+                             nexthdr=6, direction=d)] = PolicyMapStateEntry(
+                    proxy_port=int(rng.choice([0, 0, 15001])))
+            elif kind == 1:
+                st[PolicyKey(identity=int(ident), direction=d)] = \
+                    PolicyMapStateEntry()
+            else:
+                st[PolicyKey(identity=0,
+                             dest_port=int(rng.integers(1, 65536)),
+                             nexthdr=6, direction=d)] = PolicyMapStateEntry()
+        states.append(st)
+    return states
+
+
+def mixed_bucket_packets(states: List[PolicyMapState], batch: int,
+                         seed: int) -> Dict[str, np.ndarray]:
+    """Packets over ``mixed_bucket_states``: half take a key of their
+    endpoint (a random identity for wildcard keys, a random port for
+    L3-only ones), half are random; 10% fragments, lengths up to 2**31
+    so the byte counters wrap.  All [batch] int32."""
+    rng = np.random.default_rng(seed)
+    keys = [list(st) for st in states]
+    ep = rng.integers(0, len(states), batch)
+    ident = rng.integers(0, 5200, batch)
+    dport = rng.integers(1, 65536, batch)
+    direction = rng.integers(0, 2, batch)
+    for i in np.flatnonzero(rng.random(batch) < 0.5):
+        k = keys[ep[i]][rng.integers(0, len(keys[ep[i]]))]
+        ident[i] = k.identity or ident[i]
+        dport[i] = k.dest_port or dport[i]
+        direction[i] = k.direction
+    cols = {"endpoint": ep, "identity": ident, "dport": dport,
+            "proto": rng.choice([6, 6, 6, 17], batch),
+            "direction": direction,
+            "length": rng.integers(40, 1 << 31, batch),
+            "is_fragment": (rng.random(batch) < 0.1)}
+    return {k: v.astype(np.int32) for k, v in cols.items()}
+
+
+class Config2Run:
+    """The config-2 state behind a ``BucketVerdictEngine`` on a device.
+    ``state`` defaults to the full BASELINE width (10,000 endpoints x
+    1,000 rules)."""
+
+    def __init__(self, batch: int, device: DeviceLike = None,
+                 state: Config2State = None):
+        self.device = resolve_device(device)
+        self.batch = batch
+        self.state = state if state is not None else build_config2()
+        self.engine = BucketVerdictEngine(self.state.tables,
+                                          device=self.device)
+
+    def packets(self, seed: int) -> Dict[str, np.ndarray]:
+        """One batch of the config-2 traffic, on the host."""
+        return config2_packets(self.state, self.batch, seed)
+
+    def to_device(self, host: Dict[str, np.ndarray]) -> List[torch.Tensor]:
+        """A host batch as the engine's argument tensors on its device."""
+        return [torch.as_tensor(host[f], device=self.device)
+                for f in CONFIG2_FIELDS]
+
+    def step(self, pkts: List[torch.Tensor]) -> torch.Tensor:
+        """One verdict step (counters add in place)."""
+        return self.engine(*pkts)
+
+
+# ---------------------------------------------------------------------------
+# Configs 3-5: the L7 rule sets and requests of bench_suite.py:138-231
+# ---------------------------------------------------------------------------
+
+# config 3: HTTP method+path regex, 4 rules
+HTTP_RULES = (PortRuleHTTP(method="GET", path="/public/.*"),
+              PortRuleHTTP(method="GET", path="/api/v[0-9]+/users/.*"),
+              PortRuleHTTP(method="POST", path="/api/v[0-9]+/orders"),
+              PortRuleHTTP(method="PUT", path="/admin/.*",
+                           host="admin\\.example\\.com"))
+HTTP_PATHS = ("/public/idx.html", "/api/v2/users/42", "/api/v2/orders",
+              "/secret/x", "/admin/panel", "/api/vX/users/1")
+HTTP_METHODS = ("GET", "POST", "PUT")
+# config 4: Kafka topic/API-key ACLs
+KAFKA_RULES = (PortRuleKafka(role="consume", topic="events.page"),
+               PortRuleKafka(api_key="produce", topic="logs"),
+               PortRuleKafka(client_id="trusted-0"))
+# config 5: FQDN wildcard selectors
+FQDN_SELECTORS = (FQDNSelector(match_pattern="*.example.com"),
+                  FQDNSelector(match_name="api.internal.svc"),
+                  FQDNSelector(match_pattern="db-*.prod.local"))
+
+
+def config3_requests(batch: int) -> List[HTTPRequest]:
+    """The http-regex bench's requests: 6 paths x 3 methods, host
+    ``admin.example.com``."""
+    return [HTTPRequest(method=HTTP_METHODS[i % 3], path=HTTP_PATHS[i % 6],
+                        host="admin.example.com") for i in range(batch)]
+
+
+def config4_requests(batch: int) -> List[KafkaRequest]:
+    """The kafka-acl bench's requests: fetch and produce, two topics,
+    seven client ids."""
+    return [KafkaRequest(api_key=0 if i % 2 else 1, api_version=2,
+                         correlation_id=i,
+                         topics=["events.page" if i % 3 else "logs"],
+                         client_id=f"client-{i % 7}") for i in range(batch)]
+
+
+def config5_names(batch: int) -> List[str]:
+    """The fqdn bench's names: half ``host<i>.example.com``, half
+    ``db-<i>.prod.local``."""
+    return [f"host{i}.example.com" if i % 2 else f"db-{i}.prod.local"
+            for i in range(batch)]

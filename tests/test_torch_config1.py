@@ -228,7 +228,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(config1):
         pipeline.make_step(cp, cl, device="cuda")
     feats = device.probe()
     assert not feats["cuda_available"]
-    assert feats["verdict_engines"] == ["hash", "dense"]
+    assert feats["verdict_engines"] == ["hash", "dense", "bucket"]
     assert device.resolve_device("cpu") == torch.device("cpu")
 
 
