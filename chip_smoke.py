@@ -96,10 +96,27 @@ script exits non-zero:
    payloads at the default batch hint (the card selects ``assoc``),
    and every ``DFAEngine`` strategy x dtype, card against CPU.  Kafka
    ACLs run on the host only; their host rate is printed as such.
-9. the kernels line (the dense kernel's launches on the config-2 and L7
-   paths, 0, beside those of v4 and v6), the card's name and power
-   limit from nvidia-smi, and a last line ``{"ok": true, "device":
-   {...}}``.
+9. the fused optional stages (``phase_stages``): the v4 state with the
+   L7 fast-verdict bench's two redirects on every endpoint
+   (``workloads.l7_serving_state``: HTTP ingress :80 -> 15001, DNS
+   egress :53 -> 15002, W = 128, a tenth of the pool flows aimed at
+   them with payloads from the bench's request and name mix, 5%
+   overlong and 5% absent), flows on, v4 then v6.  Legs: ``l7fast``,
+   ``threat-shadow`` (every threshold 0), ``threat`` (the enforce leg
+   of ``bench_suite.py`` with a redirect arm), ``analytics`` (width
+   4,096, depth 2, 4 lanes, stripe 16) and, on v4, ``all-stages``.
+   Each leg: the card against the CPU at 2**16 over 3 batches in every
+   output and buffer; the HTTP / DNS engines on the rows decided inline,
+   ``oracle_threat_step`` and ``oracle_analytics_step`` on the card's
+   stage calls; the shadow leg against an engine without the stage;
+   then at 2**20, from empty conntrack and flow tables, the verdict
+   shares of a first pass, the sync check, 50 timed batches beside the
+   flags-off leg's, a profile, and the time of each config, weight and
+   epoch swap, with 0 rebuilds.
+10. the kernels line (the dense kernel's launches on the config-2, L7
+   and stage paths, 0, beside those of v4 and v6), the card's name and
+   power limit from nvidia-smi, and a last line ``{"ok": true,
+   "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -115,17 +132,22 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from cilium_tpu_torch import kernels, sass_mix
+from cilium_tpu_torch import convert, kernels, sass_mix
+from cilium_tpu_torch.analytics.decode import (quiesced_section,
+                                               top_prefixes, top_scanners,
+                                               top_talkers)
+from cilium_tpu_torch.analytics.oracle import oracle_analytics_step
 from cilium_tpu_torch.compiler.bucket_tables import compile_states_bucketed
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, oracle_lpm_u32,
                                            parse_prefixes)
 from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
 from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
                                               oracle_match)
-from cilium_tpu_torch.datapath import conntrack, engine, events
+from cilium_tpu_torch.datapath import conntrack, engine, events, pipeline
 from cilium_tpu_torch.datapath.codes import VERDICT_DROP, WORLD_IDENTITY
 from cilium_tpu_torch.datapath.pipeline import PACKED_FIELDS
 from cilium_tpu_torch.device import cuda_ms, nvidia_smi, probe
+from cilium_tpu_torch.hubble.aggregation import EVENT_BIAS
 from cilium_tpu_torch.l7.dns import DNSPolicyEngine
 from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
                                       rule_to_combined_regex)
@@ -139,13 +161,22 @@ from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
 from cilium_tpu_torch.profile_config1 import (V4_WARMUP, profile_run,
                                               profile_step)
-from cilium_tpu_torch.workloads import (CONFIG2_FIELDS, FQDN_SELECTORS,
-                                        HTTP_RULES, KAFKA_RULES, TRAFFICS,
+from cilium_tpu_torch.threat.model import ThreatConfig, default_model
+from cilium_tpu_torch.threat.oracle import oracle_threat_step
+from cilium_tpu_torch.threat.trainer import ThreatTrainer
+from cilium_tpu_torch.workloads import (ANALYTICS, CONFIG2_FIELDS,
+                                        FQDN_SELECTORS, HTTP_RULES,
+                                        KAFKA_RULES, L7_BAD_SHARES,
+                                        L7_FLOW_SHARE, THREAT, TRAFFICS,
                                         V4_T0, Config1Run, Config2Run,
                                         V4Run, V6Run, build_config2,
                                         config3_requests, config4_requests,
-                                        config5_names, mixed_bucket_packets,
-                                        mixed_bucket_states, unpack6,
+                                        config5_names, l7_serving_packets,
+                                        l7_serving_packets6,
+                                        l7_serving_state,
+                                        mixed_bucket_packets,
+                                        mixed_bucket_states,
+                                        threat_enforce_config, unpack6,
                                         v4_serving_packets,
                                         v4_serving_state, v6_of,
                                         v6_serving_packets)
@@ -1361,6 +1392,542 @@ def phase_l7(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the fused optional stages (L7 fast verdict, threat, analytics)
+# ---------------------------------------------------------------------------
+
+STAGE_BATCH = 1 << 20
+STAGE_SMALL = 1 << 16
+STAGE_PARITY_BATCHES = 3
+STAGE_TIMED = 50
+STAGE_CYCLE = 5       # distinct 2**20 batches the timed legs cycle through
+STAGE_PROFILE = 3
+# stage legs per family, in this order ("all" is v4 only)
+STAGE_LEGS = ("off", "l7fast", "threat-shadow", "threat", "analytics",
+              "all")
+
+
+class StageRun:
+    """A full-width ``Datapath`` serving a fixed set of batches already on
+    the card in turn, each with its own payload lane, behind the
+    interface of ``V4Run`` / ``V6Run`` (``step``, ``next_batch``,
+    ``advance``, ``now``) that ``sync_check`` and ``profile_run`` use."""
+
+    def __init__(self, dp, family6: bool, batches, payloads):
+        self.dp = dp
+        # the empty tables, restored before each leg (``reset``)
+        self._empty_ct = dp.snapshot_ct()
+        self.family6 = family6
+        self.device = dp.device
+        self.batch = int(batches[0].shape[1])
+        self.batches = batches
+        self._payload_of = {b.data_ptr(): p
+                            for b, p in zip(batches, payloads)}
+        self.i = 0
+        self.t = 0
+
+    @property
+    def now(self) -> int:
+        return V4_T0 + 1000 + self.t
+
+    def next_batch(self):
+        b = self.batches[self.i % len(self.batches)]
+        self.i += 1
+        return b
+
+    def step(self, batch):
+        pl = self._payload_of[batch.data_ptr()]
+        if self.family6:
+            return self.dp.process6(unpack6(batch), now=self.now,
+                                    payload=pl)
+        return self.dp.process_packed(batch, now=self.now, payload=pl)
+
+    def advance(self) -> int:
+        self.t += 1
+        return self.dp.gc(self.now) if self.t % 8 == 0 else 0
+
+    def reset(self) -> None:
+        """Empty conntrack and flow tables, and the first batch next:
+        every leg starts from the same state."""
+        self.dp.restore_ct_snapshots(*self._empty_ct)
+        if self.dp.flows is not None:
+            self.dp.flows.reset()
+            self.dp._flow_tick = 0
+        self.i = 0
+
+
+def set_stages(dp, leg: str, l7st) -> None:
+    """Put ``dp``'s optional stages in the state of one leg."""
+    want = {"l7fast": leg in ("l7fast", "all"),
+            "threat": leg in ("threat-shadow", "threat", "all"),
+            "analytics": leg in ("analytics", "all")}
+    if want["l7fast"]:
+        if dp._l7_fast is None:
+            dp.enable_l7_fast(l7st.programs)
+    else:
+        dp.disable_l7_fast()
+    if want["threat"]:
+        cfg = ThreatConfig() if leg == "threat-shadow" \
+            else threat_enforce_config(redirect=True)
+        if dp._threat is None:
+            dp.enable_threat(default_model(cfg), **THREAT)
+        else:
+            dp.set_threat_config(cfg)
+    else:
+        dp.disable_threat()
+    if want["analytics"]:
+        if dp.analytics_state is None:
+            dp.enable_analytics(**ANALYTICS)
+    else:
+        dp.disable_analytics()
+
+
+def _flow_index(flows) -> dict:
+    """The flow table as the threat oracle's index (``FlowTable.snapshot``
+    rows keyed as ``threat/oracle.flow_snapshot_index`` keys them)."""
+    keys = flows.keys.cpu().numpy()
+    cnt = flows.counters.cpu().numpy().view(np.uint32)
+    slots = keys.shape[0] - 2
+    idx = np.flatnonzero(keys[:slots, 2])
+    return {(int(keys[i, 0]), int(keys[i, 1]),
+             int((keys[i, 2] >> 16) & 0xFFFF), int((keys[i, 2] >> 8) & 0xFF),
+             int(keys[i, 2] & 0xFF) - EVENT_BIAS):
+            (int(cnt[i, 0]), int(cnt[i, 1]), int(keys[i, 3]))
+            for i in idx.tolist()}
+
+
+def _host(x):
+    return x.cpu().numpy().copy() if isinstance(x, torch.Tensor) else x
+
+
+class StageTap:
+    """Within the block, record every call of one stage function on the
+    card: its inputs copied to the host before the call, and its state
+    buffer after it, for the numpy oracles.  (The copies read the card:
+    the tap runs only in the parity legs, never in a timed or checked
+    step.)"""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.calls = []
+
+    def __enter__(self):
+        orig = getattr(self.module, self.name)
+        self.orig = orig
+
+        def tapped(*args, **kw):
+            rec = {"args": [_host(a) for a in args],
+                   "kw": {k: _host(v) for k, v in kw.items()}}
+            if self.name == "threat_stage":
+                tables, threat, flows = args[:3]
+                rec["model"] = convert.threat_model_from_tables(
+                    {n: _host(getattr(tables, n)) for n in
+                     ("tm_w1", "tm_b1", "tm_w2", "tm_b2", "tm_cfg")})
+                rec["pre"] = _host(threat.state)
+                rec["flows"] = None if flows is None or \
+                    not kw.get("flow_slots") else _flow_index(flows)
+            else:
+                rec["pre"] = _host(args[0].state)
+            out = orig(*args, **kw)
+            rec["out"] = out
+            self.calls.append(rec)
+            return out
+        setattr(self.module, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def threat_oracle(tap: StageTap) -> int:
+    """Elements where the card's threat stage differs from the port's
+    numpy ``oracle_threat_step`` on the same inputs: verdict, threat_out
+    and the whole state buffer after the call."""
+    bad = 0
+    for rec in tap.calls:
+        kw = dict(rec["kw"])
+        now = int(kw.pop("now"))
+        slots = kw.pop("flow_slots")
+        kw.pop("flow_probe")
+        window_s, stripe = kw.pop("window_s"), kw.pop("stripe")
+        state = rec["pre"].copy()
+        want = oracle_threat_step(
+            state, rec["model"], rec["args"][3], **kw, now=now,
+            window_s=window_s, stripe=stripe,
+            flow_index=rec["flows"] if slots else None)
+        out = rec["out"]
+        bad += int((want[0] != _host(out[0])).sum())
+        bad += int((want[1] != _host(out[2])).sum())
+        bad += int((state != _host(out[1].state)).sum())
+    return bad
+
+
+def analytics_oracle(tap: StageTap) -> int:
+    """Elements of the whole analytics buffer where the card differs from
+    the port's numpy ``oracle_analytics_step`` on the same inputs."""
+    bad = 0
+    for rec in tap.calls:
+        kw = dict(rec["kw"])
+        now = int(kw.pop("now"))
+        state = rec["pre"].copy()
+        oracle_analytics_step(state, **kw, now=now)
+        bad += int((state != _host(rec["out"].state)).sum())
+    return bad
+
+
+def l7_engine_verdicts(l7st) -> np.ndarray:
+    """Per row of the payload table: the port's HTTP or DNS policy
+    engine's verdict on its string (absent and overlong rows: -1)."""
+    http = HTTPPolicyEngine(list(HTTP_RULES), device="cpu")
+    dns = DNSPolicyEngine(list(FQDN_SELECTORS), device="cpu")
+    out = np.full(len(l7st.strings), -1, np.int64)
+    for k, s in enumerate(l7st.strings[:l7st.overlong_row]):
+        if k < l7st.n_http:
+            m, p, h = s.split("\x00")
+            out[k] = int(http.check([HTTPRequest(method=m, path=p,
+                                                 host=h)])[0])
+        else:
+            out[k] = int(dns.allowed([s])[0])
+    return out
+
+
+def l7_oracle(engine_verdict, idx, tier, rng) -> dict:
+    """Up to ``ORACLE_SAMPLE`` rows decided inline against the engines'
+    verdicts on their strings; rows whose payload is absent or
+    overlong must not be decided."""
+    fa = tier == events.TIER_L7_FAST_ALLOW
+    fd = tier == events.TIER_L7_FAST_DENY
+    decided = np.flatnonzero(fa | fd)
+    pick = rng.choice(decided, min(ORACLE_SAMPLE, decided.shape[0]),
+                      replace=False) if decided.shape[0] else decided
+    bad = int((engine_verdict[idx[pick]] != fa[pick]).sum())
+    bad += int((engine_verdict[idx[decided]] < 0).sum())
+    return {"checked": int(pick.shape[0]), "mismatches": bad}
+
+
+def stage_mismatches(outs_g, outs_c, gpu, cpu, family6: bool) -> dict:
+    """``mismatches`` plus threat_out, the threat and analytics buffers
+    and the L7 fast-allow / fast-deny / redirect counts."""
+    mism = mismatches(outs_g, outs_c, gpu, cpu, family6)
+    if gpu._threat is not None:
+        mism["threat_out"] = int((gpu.last_threat.cpu() !=
+                                  cpu.last_threat).sum())
+        mism["threat.state"] = int((gpu.threat_state.state.cpu() !=
+                                    cpu.threat_state.state).sum())
+    if gpu.analytics_state is not None:
+        mism["analytics.state"] = int((gpu.analytics_state.state.cpu() !=
+                                       cpu.analytics_state.state).sum())
+    if gpu._l7_fast is not None:
+        for name, n_g, n_c in zip(("allow", "deny", "redirect"),
+                                  l7_counts(outs_g[0], gpu),
+                                  l7_counts(outs_c[0], cpu)):
+            mism[f"l7.{name}"] = abs(n_g - n_c)
+    return mism
+
+
+def l7_counts(verdict, dp):
+    """(fast-allow, fast-deny, L7 redirect) rows of the last step."""
+    tier = dp.last_provenance.tier
+    return (int((tier == events.TIER_L7_FAST_ALLOW).sum()),
+            int((tier == events.TIER_L7_FAST_DENY).sum()),
+            int(((tier == events.TIER_L7_REDIRECT) & (verdict > 0)).sum()))
+
+
+def stage_parity(fam: str, dev, load, l7st, family6: bool, stream,
+                 legs) -> dict:
+    """The stages on the card and on the CPU, one state and seed, flows
+    and provenance on: ``STAGE_PARITY_BATCHES`` batches of 2**16 a leg,
+    the legs in turn on the same engines.  Every output and buffer is
+    compared (``stage_mismatches``), and the oracles run on the card's
+    stage calls.  The shadow leg is also held against a third engine
+    without the threat stage, which serves the legs before it with the
+    same stages as the others.  Raises on any mismatch."""
+    pair = []
+    for where in (dev, torch.device("cpu"), torch.device("cpu")):
+        dp = engine.Datapath(ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                             device=where)
+        load(dp)
+        dp.enable_provenance()
+        enable_flows(dp)
+        pair.append(dp)
+    gpu, cpu, plain = pair
+    engine_verdict = l7_engine_verdicts(l7st)
+    rng = np.random.default_rng(17)
+    table = torch.as_tensor(l7st.table)
+    out = {}
+    now = V4_T0
+    shadow_at = legs.index("threat-shadow")
+    for at, leg in enumerate(legs):
+        set_stages(gpu, leg, l7st)
+        set_stages(cpu, leg, l7st)
+        if at <= shadow_at:
+            set_stages(plain, "off" if leg == "threat-shadow" else leg,
+                       l7st)
+        total, oracle_bad, counts = {}, {}, np.zeros(3, np.int64)
+        oracle_checked = 0
+        for k in range(STAGE_PARITY_BATCHES):
+            packed, idx = next(stream)
+            host = torch.as_tensor(packed)
+            payload = table[torch.as_tensor(idx).long()]
+            x = host.to(dev)
+            pl = payload.to(dev)
+            now += 1
+
+            def step(dp, batch, p):
+                if family6:
+                    return dp.process6(unpack6(batch), now=now, payload=p)
+                return dp.process_packed(batch, now=now, payload=p)
+            with StageTap(pipeline, "threat_stage") as t_tap, \
+                    StageTap(pipeline, "analytics_stage") as a_tap:
+                outs_g = step(gpu, x, pl)
+                torch.cuda.synchronize()
+            outs_c = step(cpu, host, payload)
+            if at <= shadow_at:
+                outs_p = step(plain, host, payload)
+            mism = stage_mismatches(outs_g, outs_c, gpu, cpu, family6)
+            if leg == "threat-shadow":
+                for name, g, p in zip(("verdict", "event"), outs_g[:2],
+                                      outs_p[:2]):
+                    mism[f"shadow_vs_off.{name}"] = int((g.cpu() != p).sum())
+                mism["shadow_vs_off.tier"] = int(
+                    (gpu.last_provenance.tier.cpu() !=
+                     plain.last_provenance.tier).sum())
+            for name, bad in mism.items():
+                total[name] = total.get(name, 0) + bad
+            if t_tap.calls:
+                oracle_bad["threat"] = oracle_bad.get("threat", 0) + \
+                    threat_oracle(t_tap)
+            if a_tap.calls:
+                oracle_bad["analytics"] = oracle_bad.get("analytics", 0) \
+                    + analytics_oracle(a_tap)
+            if gpu._l7_fast is not None:
+                tier = gpu.last_provenance.tier.cpu().numpy()
+                res = l7_oracle(engine_verdict, idx, tier, rng)
+                oracle_bad["l7"] = oracle_bad.get("l7", 0) + \
+                    res["mismatches"]
+                oracle_checked += res["checked"]
+                counts += l7_counts(outs_g[0], gpu)
+            if any(mism.values()) or any(oracle_bad.values()):
+                raise AssertionError(
+                    f"{fam} {leg} parity at batch {k}: "
+                    f"{ {n: v for n, v in mism.items() if v} } "
+                    f"oracle {oracle_bad}")
+        res = {"leg": leg, "batches": STAGE_PARITY_BATCHES,
+               "b": STAGE_SMALL, "mismatches": sum(total.values()),
+               "compared": sorted(total), "oracle_mismatches": oracle_bad,
+               "threat_fired": None if gpu.last_threat is None else
+               int(((gpu.last_threat >> 10) & 1).sum()),
+               "verdicts": {str(c): n for c, n in zip(*(
+                   t.tolist() for t in torch.unique(outs_g[0].cpu(),
+                                                    return_counts=True)))}}
+        if gpu._l7_fast is not None:
+            res.update(l7_fast_allow=int(counts[0]),
+                       l7_fast_deny=int(counts[1]),
+                       l7_redirect=int(counts[2]),
+                       l7_oracle_rows=oracle_checked)
+        emit(f"{leg}-{fam}-parity" if leg != "all" else "all-stages-parity",
+             **res)
+        out[leg] = res
+    set_stages(gpu, "off", l7st)
+    return out
+
+
+def stage_timed(run, calls: int) -> dict:
+    """Per-batch device time of ``calls`` steps on batches already on the
+    card (CUDA events around the step alone), and the verdict shares
+    over those batches (counted after each step's timing)."""
+    ms, counts = [], {}
+    for _ in range(calls):
+        b = run.next_batch()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run.step(b)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        v = out[0]
+        for name, mask in (("allow", v == 0),
+                           ("policy_drop", v == VERDICT_DROP),
+                           ("l7_drop", v == -3), ("threat_drop", v == -4),
+                           ("proxy", v > 0)):
+            counts[name] = counts.get(name, 0) + int(mask.sum())
+        run.advance()
+    res = {"batch": run.batch, **timing(ms, run.batch)}
+    res["verdicts_per_s"] = res.pop("rows_per_s")
+    res["verdict_share"] = {k: n / (calls * run.batch)
+                            for k, n in counts.items()}
+    return res
+
+
+def timed_swap(fn) -> dict:
+    """Host ms of one swap call, and ms until the card has done it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ret = fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return {"host_ms": host_ms,
+            "done_ms": (time.perf_counter() - t0) * 1e3, "returned": ret}
+
+
+def stage_swaps(run, leg: str, l7st) -> dict:
+    """Between two timed batches: the threat legs flip the config and
+    swap the weights (same geometry), the analytics leg swaps the epoch
+    and decodes the quiesced section on the host.  Every swap must leave
+    the table generation (``rebuilds``) and the live tensors as they
+    were."""
+    dp = run.dp
+    out = {}
+    before = dp.rebuilds
+    if dp._threat is not None:
+        ptrs = [getattr(dp._tables, n).data_ptr()
+                for n in ("tm_w1", "tm_cfg")]
+        stage_timed(run, 1)
+        flipped = ThreatConfig() if dp._threat.config.mode == "enforce" \
+            else threat_enforce_config(redirect=True)
+        out["threat_config"] = timed_swap(
+            lambda: dp.set_threat_config(flipped))
+        stage_timed(run, 1)
+        out["threat_config_back"] = timed_swap(
+            lambda: dp.set_threat_config(
+                threat_enforce_config(redirect=True) if leg != "threat-shadow"
+                else ThreatConfig()))
+        trainer = ThreatTrainer(epochs=30)
+        trained = trainer.fit(dp.flow_snapshot(FLOW_SLOTS), now=run.now,
+                              config=dp._threat.config)
+        out["threat_trained"] = trainer.last_report
+        out["threat_weights"] = timed_swap(
+            lambda: dp.apply_threat_weights(trained))
+        stage_timed(run, 1)
+        out["threat_weights_back"] = timed_swap(
+            lambda: dp.apply_threat_weights(default_model(
+                dp._threat.config)))
+        if not (out["threat_weights"]["returned"] and
+                out["threat_weights_back"]["returned"]):
+            raise AssertionError("a same-geometry weight swap rebuilt")
+        if ptrs != [getattr(dp._tables, n).data_ptr()
+                    for n in ("tm_w1", "tm_cfg")]:
+            raise AssertionError("a threat swap replaced a live tensor")
+    if dp.analytics_state is not None:
+        ptr = dp.analytics_state.state.data_ptr()
+        stage_timed(run, 1)
+        out["epoch"] = timed_swap(dp.swap_analytics_epoch)
+        stage_timed(run, 1)
+        t0 = time.perf_counter()
+        snap = dp.analytics_snapshot()
+        sec = quiesced_section(snap, ANALYTICS["depth"],
+                               ANALYTICS["lanes"])
+        views = {"talkers": top_talkers(sec, ANALYTICS["depth"], k=5),
+                 "scanners": top_scanners(sec, ANALYTICS["depth"], k=5),
+                 "prefixes": top_prefixes(sec, ANALYTICS["depth"], k=5)}
+        out["decode"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         **{k: len(v) for k, v in views.items()},
+                         "top_talker": views["talkers"][:1]}
+        if not views["talkers"] or not views["prefixes"]:
+            raise AssertionError("the analytics decode found no talker")
+        if dp.analytics_state.state.data_ptr() != ptr:
+            raise AssertionError("the epoch swap replaced the buffer")
+    out["rebuilds"] = dp.rebuilds - before
+    if out["rebuilds"]:
+        raise AssertionError(f"{leg}: a swap rebuilt the tables")
+    return out
+
+
+def phase_stages(dev, state4) -> dict:
+    """The fused optional stages at full width, v4 then v6; returns the
+    dense kernel's launches during each phase (the paths run none)."""
+    t0 = time.perf_counter()
+    l7st = l7_serving_state(state4)
+    st6 = v6_of(l7st.v4)
+    emit("stages-state", programs=l7st.programs.describe(),
+         http_net=f"{l7st.http_net >> 24}.{(l7st.http_net >> 16) & 255}"
+                  ".0.0/16",
+         dns_net=f"{l7st.dns_net >> 24}.{(l7st.dns_net >> 16) & 255}"
+                 ".0.0/16",
+         l7_flow_share=L7_FLOW_SHARE, bad_payload_shares=L7_BAD_SHARES,
+         threat=THREAT, analytics=ANALYTICS,
+         setup_s=time.perf_counter() - t0)
+    launches = {}
+    table = torch.as_tensor(l7st.table, device=dev)
+    for family6 in (False, True):
+        fam = "v6" if family6 else "v4"
+        if family6:
+            def load(dp):
+                st6.v4.load(dp)
+                st6.load(dp)
+            make = l7_serving_packets6
+        else:
+            load = l7st.v4.load
+            make = l7_serving_packets
+        legs = STAGE_LEGS if not family6 else STAGE_LEGS[:-1]
+        dv.dense_verdict.launches = 0
+        t0 = time.perf_counter()
+        parity = stage_parity(fam, dev, load, l7st, family6,
+                              make(l7st, STAGE_SMALL,
+                                   n_flows=V4_FLOWS // 16, seed=6),
+                              legs[1:])
+        parity_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        gen = make(l7st, STAGE_BATCH, n_flows=V4_FLOWS, seed=5)
+        batches, payloads = [], []
+        for _ in range(STAGE_CYCLE):
+            packed, idx = next(gen)
+            batches.append(torch.as_tensor(packed, device=dev))
+            payloads.append(table[torch.as_tensor(idx, device=dev).long()])
+        dp = engine.Datapath(ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                             device=dev)
+        load(dp)
+        enable_flows(dp)
+        run = StageRun(dp, family6, batches, payloads)
+        emit(f"stages-{fam}-setup", batches=STAGE_CYCLE, b=STAGE_BATCH,
+             payload_mb=payloads[0].numel() * 4 / 1e6,
+             seconds=time.perf_counter() - t0, parity_s=parity_s)
+        base = None
+        for leg in legs:
+            t0 = time.perf_counter()
+            # each leg from empty conntrack and flow tables; its first
+            # pass over the batches (fresh flows) gives the shares of
+            # what the stages decide, the later passes the timing
+            run.reset()
+            set_stages(dp, leg, l7st)
+            first = stage_timed(run, STAGE_CYCLE)
+            # the shadow leg runs the enforce leg's code (the armed
+            # branch always runs), whose sync check follows
+            sync = sync_check(run, FLOW_CLAIM_EVERY) \
+                if leg not in ("off", "threat-shadow") else None
+            # every leg is timed with provenance off, the daemon's default
+            dp.disable_provenance()
+            timed = stage_timed(run, STAGE_TIMED)
+            prof = profile_run(run, STAGE_PROFILE)
+            swaps = stage_swaps(run, leg, l7st) if leg != "off" else {}
+            if leg == "off":
+                base = (timed, prof)
+            res = {"leg": leg, **timed,
+                   "added_ms": timed["median_batch_ms"] -
+                   base[0]["median_batch_ms"],
+                   "kernels_per_step": prof["kernels_per_step"],
+                   "added_kernels": prof["kernels_per_step"] -
+                   base[1]["kernels_per_step"],
+                   "busy_ms": prof["busy_ms"],
+                   "added_busy_ms": prof["busy_ms"] - base[1]["busy_ms"],
+                   "off_median_batch_ms": base[0]["median_batch_ms"],
+                   "first_pass_share": first["verdict_share"],
+                   "ct_entries": dp.ct_entries()[1 if family6 else 0],
+                   "top": prof["top"][:8], "swaps": swaps,
+                   "seconds": time.perf_counter() - t0}
+            if sync is not None:
+                emit(f"{leg}-{fam}-sync" if leg != "all"
+                     else "all-stages-sync", **sync)
+            if leg != "off":
+                res["parity"] = parity[leg]
+            emit(f"{leg}-{fam}" if leg != "all" else "all-stages", **res)
+        set_stages(dp, "off", l7st)
+        launches[fam] = dv.dense_verdict.launches
+    return launches
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1399,11 +1966,11 @@ def main() -> int:
     parity_err = phase_parity(dev)
 
     base = run_state("baseline-config1", 100, dev, BATCH, ORACLE_SAMPLE, {
-        "uniform": {"hash": 1000, "dense": 1000, "kernel": 200, "plain": 3},
+        "uniform": {"hash": 400, "dense": 400, "kernel": 200, "plain": 3},
         "allow-heavy": {"hash": 200, "dense": 200, "kernel": 200,
                         "plain": 0}}, pair_s, function_pair_s)
     north = run_state("north-star-10k", 10_000, dev, BATCH, ORACLE_SAMPLE, {
-        "uniform": {"hash": 1000, "dense": 50, "kernel": 100, "plain": 1},
+        "uniform": {"hash": 400, "dense": 50, "kernel": 100, "plain": 1},
         "allow-heavy": {"hash": 200, "dense": 50, "kernel": 100,
                         "plain": 0}}, pair_s, function_pair_s)
 
@@ -1411,6 +1978,7 @@ def main() -> int:
     v6_launches = phase_v6(dev, state4)
     config2_launches = phase_config2(dev)
     l7_launches = phase_l7(dev)
+    stage_launches = phase_stages(dev, state4)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -1443,6 +2011,7 @@ def main() -> int:
         "v6_path_launches": v6_launches,
         "config2_path_launches": config2_launches,
         "l7_path_launches": l7_launches,
+        "stage_path_launches": stage_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -1,7 +1,7 @@
 """Compile per-endpoint PolicyMapStates into stacked tables.
 
 Copy of the part of ``cilium_tpu/compiler/policy_tables.py`` the
-config-1 path needs.  Key layout (two uint32 words, matching
+config-1 path and the L7 fast-verdict stage need.  Key layout (two uint32 words, matching
 bpf/lib/common.h:180 policy_key):
     word A = identity (full 32 bits)
     word B = dport<<16 | proto<<8 | direction<<1 | 1
@@ -13,7 +13,7 @@ port=0, proto=0, dir=0.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -79,6 +79,21 @@ def compile_endpoints(map_states: Sequence[PolicyMapState],
     return CompiledPolicy(revision=revision, key_id=key_id,
                           key_meta=key_meta, value=value,
                           max_probe=max_probe, num_endpoints=e, slots=s)
+
+
+def compile_l7_classification(value: np.ndarray,
+                              port_to_prog: Dict[int, int]
+                              ) -> np.ndarray:
+    """The per-slot L7 fast-verdict classification table: the compiled
+    value tensor (slot proxy ports; 0 = plain allow) mapped to fused DFA
+    program ids.  ``-1`` keeps redirect-to-proxy; ``>= 0`` marks the
+    slot first-bytes-decidable by that program.  ``port_to_prog`` comes
+    from ``l7/fast.build_fast_programs``; int32, the value's shape."""
+    out = np.full(value.shape, -1, np.int32)
+    for port, prog in port_to_prog.items():
+        if port > 0:
+            out[value == port] = prog
+    return out
 
 
 def oracle_verdict(state: PolicyMapState, identity: int, dport: int,

@@ -7,8 +7,9 @@ of ``DatapathTables``, ``Counters``, ``DenseTables``, ``DenseLPM``,
 ``device``.  Leaves must be 32-bit integers; uint32 leaves (the
 counters) become int32 views of the same bits.  The engine's packed
 counters ([2, E*S] uint32), conntrack snapshots (the per-field npz
-layout), the Hubble flow table, the bucket engine's counters and a
-compiled regex set have their own hand-overs.
+layout), the Hubble flow table, the bucket engine's counters, a
+compiled regex set, the L7 fast-verdict programs, the threat model and
+the threat and analytics state buffers have their own hand-overs.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Type
 import numpy as np
 import torch
 
+from .analytics.stage import AnalyticsState
 from .compiler.regexc import CompiledRegexSet
 from .datapath.conntrack import ConntrackTable
 from .datapath.lb import LB6Tables
@@ -25,8 +27,11 @@ from .datapath.pipeline import DatapathTables, LPM6Tables
 from .datapath.verdict import Counters
 from .device import DeviceLike, resolve_device
 from .hubble.aggregation import FlowState
+from .l7.fast import FastProgramSpec, L7FastPrograms
 from .ops.bucket_ops import BucketCounters
 from .ops.dense_verdict import DenseLPM, DenseTables
+from .threat.model import ThreatConfig, ThreatModel
+from .threat.stage import STATE_COLS, ThreatState
 
 Leaves = Optional[Dict[str, np.ndarray]]
 
@@ -171,3 +176,68 @@ def compiled_regex_from_jax(table: np.ndarray, accept: np.ndarray,
     return CompiledRegexSet(table=table, accept=accept, starts=starts,
                             num_states=table.shape[0],
                             patterns=tuple(patterns))
+
+
+def l7_programs_from_jax(progs) -> L7FastPrograms:
+    """The reference's ``L7FastPrograms`` (read by attribute: its numpy
+    arrays, stride, classes, window and program map) -> the port's, so
+    that both packages walk the same fused tables."""
+    arrays = {f: np.ascontiguousarray(getattr(progs, f), np.int32)
+              for f in ("flat", "cmap", "accept", "starts", "pmask")}
+    specs = tuple(FastProgramSpec(port=int(sp.port), protocol=sp.protocol,
+                                  patterns=tuple(sp.patterns))
+                  for sp in getattr(progs, "specs", ()))
+    return L7FastPrograms(
+        **arrays, k=int(progs.k), c1=int(progs.c1),
+        window=int(progs.window),
+        port_to_prog={int(p): int(i)
+                      for p, i in progs.port_to_prog.items()},
+        protocols=tuple(progs.protocols), states=int(progs.states),
+        specs=specs)
+
+
+def threat_model_from_tables(tables: Dict[str, np.ndarray]
+                             ) -> ThreatModel:
+    """A ``ThreatModel.tables()`` dict of either package (tm_w1, tm_b1,
+    tm_w2, tm_b2, tm_cfg) -> the port's model with those weights and
+    that config."""
+    return ThreatModel(w1=np.asarray(tables["tm_w1"]),
+                       b1=np.asarray(tables["tm_b1"]),
+                       w2=np.asarray(tables["tm_w2"]),
+                       b2=int(np.asarray(tables["tm_b2"]).reshape(-1)[0]),
+                       config=ThreatConfig.decode(tables["tm_cfg"]))
+
+
+def _state_buffer(arr: np.ndarray, cols: Optional[int], name: str,
+                  device: DeviceLike) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if arr.ndim != 2 or arr.dtype != np.int32 or \
+            (cols is not None and arr.shape[1] != cols):
+        raise ValueError(f"{name}: expected a 2-D int32 buffer"
+                         f"{'' if cols is None else f' of {cols} columns'}"
+                         f", got {arr.dtype} {arr.shape}")
+    return torch.as_tensor(arr.copy(), device=resolve_device(device))
+
+
+def threat_state_from_jax(state: np.ndarray, device: DeviceLike = None
+                          ) -> ThreatState:
+    """The reference's ThreatState buffer ([T+1, 6] int32) -> the
+    port's on ``device``."""
+    return ThreatState(state=_state_buffer(state, STATE_COLS,
+                                           "threat state", device))
+
+
+def threat_state_to_jax(state: ThreatState) -> np.ndarray:
+    return state.state.cpu().numpy().copy()
+
+
+def analytics_state_from_jax(state: np.ndarray, device: DeviceLike = None
+                             ) -> AnalyticsState:
+    """The reference's AnalyticsState buffer ([R, W] int32) -> the
+    port's on ``device``."""
+    return AnalyticsState(state=_state_buffer(state, None,
+                                              "analytics state", device))
+
+
+def analytics_state_to_jax(state: AnalyticsState) -> np.ndarray:
+    return state.state.cpu().numpy().copy()

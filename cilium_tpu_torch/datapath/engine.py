@@ -5,7 +5,12 @@ device table (policy, v4 and v6 ipcache LPMs, LB and lb6, prefilter,
 tunnel map, ICMPv6 router address) plus the mutable conntrack tables
 (v4 and v6), counters and the optional Hubble flow table, behind
 ``process`` (a ``FullPacketBatch``), ``process_packed`` (one [10, B]
-matrix) and ``process6`` (a ``FullPacketBatch6``).  Swap-on-regenerate:
+matrix) and ``process6`` (a ``FullPacketBatch6``).  Three optional
+stages join both family steps when enabled: the L7 fast verdict over a
+[B, W] ``payload=`` lane (``enable_l7_fast``), inline threat scoring
+(``enable_threat``) and traffic analytics (``enable_analytics``); while
+a stage is off its tables and state are not built and the steps run as
+they did before it existed.  Swap-on-regenerate:
 ``load_policy`` builds a new table generation while conntrack, counters
 and flows survive when the shapes allow (the analog of pinned BPF maps
 surviving an agent restart).  The steps run eagerly; nothing in them
@@ -27,8 +32,11 @@ from ..compiler.lpm import (CompiledLPM, CompiledLPM6, compile_lpm,
                             ipv6_to_words)
 from ..compiler.policy_tables import CompiledPolicy, compile_endpoints
 from ..device import DeviceLike, resolve_device
+from ..analytics.stage import (CTRL_COL, AnalyticsState, ctrl_row,
+                               epoch_rows, make_analytics_state)
 from ..hubble.aggregation import FlowTable
 from ..policy.mapstate import PolicyMapState
+from ..threat.stage import COL_WIN_TS, ThreatState, make_threat_state
 from .conntrack import ConntrackTable
 from .icmp6 import echo_reply
 from .lb import CompiledLB6, LoadBalancer, Service6, compile_lb6
@@ -96,6 +104,28 @@ class Datapath:
         # per-second device timestamp: steady-state batches reuse one
         # 0-d tensor instead of making a new one per batch
         self._ts_cache: Optional[Tuple[int, torch.Tensor]] = None
+        # table generations built (config, weight and epoch swaps of the
+        # optional stages write tensors in place and build none)
+        self.rebuilds = 0
+        # on-device L7 fast verdicts (l7/fast.L7FastPrograms); None: off
+        self._l7_fast = None
+        # the all -1 (absent: redirect) payload per batch size, for
+        # callers of an L7-enabled engine that carry no payload
+        self._absent_payloads: Dict[int, torch.Tensor] = {}
+        # inline threat scoring (threat/model.ThreatModel); None: off
+        self._threat = None
+        self.threat_state: Optional[ThreatState] = None
+        self.last_threat: Optional[torch.Tensor] = None  # threat_out
+        self._threat_window_s = 8
+        self._threat_stripe = 4
+        # traffic analytics (None: off): the buffer, its geometry and the
+        # epoch being written (the host's copy of the control cell, which
+        # only swap_analytics_epoch and restore_analytics_state change)
+        self.analytics_state: Optional[AnalyticsState] = None
+        self._analytics_depth = 2
+        self._analytics_lanes = 4
+        self._analytics_stripe = 16
+        self._analytics_epoch = 0
 
     @property
     def counters(self) -> Optional[Counters]:
@@ -152,6 +182,230 @@ class Datapath:
         with self._lock:
             self.provenance_enabled = False
             self.last_provenance = None
+
+    # -- on-device L7 fast verdicts (l7/fast.py) -------------------------
+
+    def enable_l7_fast(self, programs) -> None:
+        """Turn on the L7 fast-verdict stage in both family steps:
+        redirects whose matched entry's proxy port has a program in
+        ``programs`` (an ``l7/fast.L7FastPrograms``) are decided from
+        the ``payload=`` lane, allow or DROP_POLICY_L7; truncated and
+        absent payloads keep their redirect."""
+        with self._lock:
+            self._l7_fast = programs
+            self._absent_payloads = {}
+            self._rebuild()
+
+    def disable_l7_fast(self) -> None:
+        """Back to the step without the stage: every L7 rule redirects
+        to its proxy port again."""
+        with self._lock:
+            if self._l7_fast is None:
+                return
+            self._l7_fast = None
+            self._absent_payloads = {}
+            self._rebuild()
+
+    def l7_fast_report(self) -> Optional[Dict]:
+        """The program set's description (None: off)."""
+        with self._lock:
+            progs = self._l7_fast
+        return None if progs is None else progs.describe()
+
+    def l7_fast_window(self) -> int:
+        """The payload window W callers encode to (0: the stage is off
+        and payloads are ignored)."""
+        progs = self._l7_fast
+        return 0 if progs is None else progs.window
+
+    def l7_fast_protocol_of(self):
+        """Slot -> protocol tag of the program that decides it ("" for
+        -1, an empty slot or a port without a program), read from the
+        live policy tables; None when the stage is off."""
+        with self._lock:
+            progs = self._l7_fast
+            tables = self._tables
+        if progs is None:
+            return None
+        if tables is None:
+            return lambda slot: ""
+        meta = tables.datapath.key_meta.reshape(-1).cpu().numpy()
+        value = tables.datapath.value.reshape(-1).cpu().numpy()
+
+        def proto_of(slot) -> str:
+            slot = int(slot)
+            if slot < 0 or slot >= meta.shape[0] or meta[slot] == 0:
+                return ""
+            return progs.protocol_of_port(int(value[slot]))
+        return proto_of
+
+    # -- inline threat scoring (threat/) ---------------------------------
+
+    def enable_threat(self, model, buckets: int = 1024, window_s: int = 8,
+                      stripe: int = 4) -> None:
+        """Turn on threat scoring in both family steps: ``model`` (a
+        ``threat/model.ThreatModel``) scores every packet over a fresh
+        [buckets+1, 6] state; its config is a device tensor, so later
+        flips go through ``set_threat_config`` without a rebuild."""
+        with self._lock:
+            self._threat = model
+            self._threat_window_s = window_s
+            self._threat_stripe = stripe
+            self.threat_state = make_threat_state(buckets, self.device)
+            self._rebuild()
+
+    def disable_threat(self) -> None:
+        """Back to the step without the stage."""
+        with self._lock:
+            if self._threat is None:
+                return
+            self._threat = None
+            self.threat_state = None
+            self.last_threat = None
+            self._rebuild()
+
+    def _write_in_place(self, dst: torch.Tensor, arr) -> None:
+        """Copy a host array into a live device tensor, ordered after
+        the steps already queued; from pinned memory on a card, so the
+        host does not wait for them."""
+        src = torch.from_numpy(np.ascontiguousarray(arr, np.int32))
+        if dst.is_cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=dst.is_cuda)
+
+    def set_threat_config(self, config) -> None:
+        """Swap the threshold / mode vector (a ``ThreatConfig``): one
+        in-place copy into the live ``tm_cfg``, no rebuild."""
+        with self._lock:
+            if self._threat is None:
+                raise RuntimeError("threat scoring not enabled")
+            self._threat = self._threat.with_config(config)
+            if self._tables is not None:
+                self._write_in_place(self._tables.tm_cfg,
+                                     self._threat.config.encode())
+
+    def apply_threat_weights(self, model) -> bool:
+        """Hot-swap the scorer (a trained ``ThreatModel``): the same
+        geometry is copied into the five live model tensors, no rebuild;
+        another hidden width rebuilds.  Returns True when it copied."""
+        with self._lock:
+            if self._threat is None:
+                raise RuntimeError("threat scoring not enabled")
+            fast = model.geometry == self._threat.geometry and \
+                self._tables is not None
+            self._threat = model
+            if not fast:
+                self._rebuild()
+                return False
+            for name, arr in model.tables().items():
+                self._write_in_place(getattr(self._tables, name), arr)
+            return True
+
+    def restore_threat_state(self, state: ThreatState) -> None:
+        """Swap in a threat state of this engine's geometry (e.g. one
+        carried from the JAX package by ``convert``)."""
+        with self._lock:
+            if self._threat is None:
+                raise RuntimeError("threat scoring not enabled")
+            want = tuple(self.threat_state.state.shape)
+            if tuple(state.state.shape) != want:
+                raise ValueError(f"threat state {tuple(state.state.shape)}"
+                                 f", engine {want}")
+            self.threat_state = ThreatState(
+                state=state.state.to(self.device, torch.int32))
+
+    def threat_report(self) -> Optional[Dict]:
+        """Model and state report (None: off); reads the state."""
+        with self._lock:
+            model = self._threat
+            state = self.threat_state
+        if model is None:
+            return None
+        out = dict(model.describe())
+        out.update({"buckets": state.state.shape[0] - 1,
+                    "window-s": self._threat_window_s,
+                    "stripe": self._threat_stripe,
+                    "active-buckets": int(
+                        (state.state[:-1, COL_WIN_TS] != 0).sum())})
+        return out
+
+    # -- traffic analytics (analytics/) ----------------------------------
+
+    def enable_analytics(self, width: int = 1 << 12, depth: int = 2,
+                         lanes: int = 4, stripe: int = 16) -> None:
+        """Turn on traffic analytics in both family steps: each batch's
+        final verdicts fold into a fresh [R, width] buffer (count-min
+        sketches, candidate key tables, cardinality registers), one row
+        in ``stripe`` a batch."""
+        with self._lock:
+            self._analytics_depth = depth
+            self._analytics_lanes = lanes
+            self._analytics_stripe = stripe
+            self.analytics_state = make_analytics_state(width, depth,
+                                                        lanes, self.device)
+            self._analytics_epoch = 0
+            self._rebuild()
+
+    def disable_analytics(self) -> None:
+        """Back to the step without the stage."""
+        with self._lock:
+            if self.analytics_state is None:
+                return
+            self.analytics_state = None
+            self._rebuild()
+
+    def swap_analytics_epoch(self) -> int:
+        """Flip the A/B epoch: zero the section about to be written and
+        name it in the control cell, two writes on the card ordered
+        after the queued steps; no host read, no rebuild.  Returns the
+        quiesced epoch (the one to decode)."""
+        with self._lock:
+            if self.analytics_state is None:
+                raise RuntimeError("analytics not enabled")
+            er = epoch_rows(self._analytics_depth, self._analytics_lanes)
+            cur = self._analytics_epoch
+            nxt = 1 - cur
+            st = self.analytics_state.state
+            st[nxt * er:(nxt + 1) * er].zero_()
+            st[ctrl_row(self._analytics_depth, self._analytics_lanes),
+               CTRL_COL] = nxt
+            self._analytics_epoch = nxt
+            return cur
+
+    def restore_analytics_state(self, state: AnalyticsState) -> None:
+        """Swap in an analytics buffer of this engine's geometry (e.g.
+        one carried from the JAX package by ``convert``); reads its
+        control cell."""
+        with self._lock:
+            if self.analytics_state is None:
+                raise RuntimeError("analytics not enabled")
+            want = tuple(self.analytics_state.state.shape)
+            if tuple(state.state.shape) != want:
+                raise ValueError(f"analytics state "
+                                 f"{tuple(state.state.shape)}, engine "
+                                 f"{want}")
+            buf = state.state.to(self.device, torch.int32)
+            self._analytics_epoch = int(buf[ctrl_row(
+                self._analytics_depth, self._analytics_lanes), CTRL_COL])
+            self.analytics_state = AnalyticsState(state=buf)
+
+    def analytics_snapshot(self) -> Optional[np.ndarray]:
+        """Host copy of the whole analytics buffer (None: off); the
+        decoder (``analytics/decode.py``) reads its quiesced section."""
+        with self._lock:
+            st = self.analytics_state
+        return None if st is None else st.state.cpu().numpy().copy()
+
+    def analytics_report(self) -> Optional[Dict]:
+        """Geometry and write epoch (None: off)."""
+        with self._lock:
+            if self.analytics_state is None:
+                return None
+            return {"width": self.analytics_state.state.shape[1],
+                    "depth": self._analytics_depth,
+                    "lanes": self._analytics_lanes,
+                    "stripe": self._analytics_stripe,
+                    "write-epoch": self._analytics_epoch}
 
     # -- table generations ----------------------------------------------
 
@@ -212,6 +466,12 @@ class Datapath:
                                          dp.value)):
                     dst[rows] = torch.as_tensor(
                         np.stack([r[i] for r in dirty.values()]),
+                        device=self.device)
+                if self._l7_fast is not None:
+                    # the rows' program ids follow their proxy ports
+                    self._tables.l7_prog[rows] = torch.as_tensor(
+                        self._l7_fast.progs_for_values(
+                            np.stack([r[2] for r in dirty.values()])),
                         device=self.device)
             return False
 
@@ -338,6 +598,7 @@ class Datapath:
         held).  Counters are kept when their size is unchanged."""
         if self._table_mgr is None and self.compiled_policy is None:
             return
+        self.rebuilds += 1
         if self.lb.compiled is None:
             self.lb._recompile()
         if self.compiled_ipcache is None:
@@ -382,12 +643,15 @@ class Datapath:
                 tun_value=self._put(tun.value),
                 tun_plens=self._put(tun.prefix_lens))
         ep_identity = self._put(self._ep_identity)
+        # the optional stages' tables, shared by both families; absent
+        # while a stage is off
+        stage_kwargs, stage_statics = self._stage_tables(dp)
         self._tables = FullTables(
             datapath=dp, lb=self.lb.compiled.tables,
             pf_masks=self._put(pf.masks), pf_key_a=self._put(pf.key_a),
             pf_key_b=self._put(pf.key_b), pf_value=self._put(pf.value),
             pf_plens=self._put(pf.prefix_lens),
-            ep_identity=ep_identity, **tun_kwargs)
+            ep_identity=ep_identity, **tun_kwargs, **stage_kwargs)
         if self._counters is None or self._counters.shape[1] != n:
             self._counters = torch.zeros((2, n), dtype=torch.int32,
                                          device=self.device)
@@ -402,7 +666,7 @@ class Datapath:
             pf_probe=max(1, pf.max_probe),
             lb_probe=self.lb.compiled.max_probe,
             ct_slots=self.ct.slots, ct_probe=self.ct.max_probe,
-            tun_probe=tun_probe, **flow_kwargs)
+            tun_probe=tun_probe, **flow_kwargs, **stage_statics)
 
         # the v6 twin shares the policy tensors and endpoint identities
         ipc6 = self.compiled_ipcache6 if self.compiled_ipcache6 \
@@ -418,14 +682,44 @@ class Datapath:
             lb6=lb6.tables if lb6 is not None else None,
             router_ip6=None if self._router_ip6 is None
             else self._put(self._router_ip6),
-            ep_identity=ep_identity)
+            ep_identity=ep_identity, **stage_kwargs)
         self._statics6 = dict(
             policy_probe=policy_probe,
             lpm6_probe=max(1, ipc6.max_probe),
             pf6_probe=max(1, pf6.max_probe),
             ct_slots=self.ct6.slots, ct_probe=self.ct6.max_probe,
             lb6_probe=lb6.max_probe if lb6 is not None else 0,
-            **flow_kwargs)
+            **flow_kwargs, **stage_statics)
+
+    def _stage_tables(self, dp: DatapathTables):
+        """(table tensors, step flags) of the enabled optional stages
+        (lock held); both empty while every stage is off.  The L7
+        program of each slot follows the slot's proxy port, so it is
+        derived again with every generation."""
+        tables, statics = {}, {}
+        progs = self._l7_fast
+        if progs is not None:
+            values = self.compiled_policy.value if self._table_mgr is None \
+                else dp.value.cpu().numpy()
+            tables.update(
+                l7_prog=self._put(progs.progs_for_values(values)),
+                l7_flat=self._put(progs.flat), l7_map=self._put(progs.cmap),
+                l7_accept=self._put(progs.accept),
+                l7_starts=self._put(progs.starts),
+                l7_pmask=self._put(progs.pmask))
+            statics.update(with_l7_fast=True, l7_k=progs.k, l7_c1=progs.c1)
+        if self._threat is not None:
+            tables.update({k: self._put(v)
+                           for k, v in self._threat.tables().items()})
+            statics.update(with_threat=True,
+                           threat_window_s=self._threat_window_s,
+                           threat_stripe=self._threat_stripe)
+        if self.analytics_state is not None:
+            statics.update(with_analytics=True,
+                           analytics_depth=self._analytics_depth,
+                           analytics_lanes=self._analytics_lanes,
+                           analytics_stripe=self._analytics_stripe)
+        return tables, statics
 
     # -- the step ---------------------------------------------------------
 
@@ -440,9 +734,37 @@ class Datapath:
         self._ts_cache = (val, ts)
         return ts
 
-    def _dispatch_locked(self, step, family6: bool, batch, ts):
-        """One step of either family (lock held), the flow table and
-        provenance threaded through when they are on."""
+    def _payload_in(self, payload: Optional[torch.Tensor],
+                    rows: int) -> Optional[torch.Tensor]:
+        """The payload lane of one step (lock held): None while the fast
+        stage is off (a payload is ignored then); the caller's [rows, W]
+        int32 tensor on this engine's device; or, when the caller has
+        none, the cached all -1 lane (absent: every L7 flow redirects)."""
+        progs = self._l7_fast
+        if progs is None:
+            return None
+        if payload is None:
+            cached = self._absent_payloads.get(rows)
+            if cached is None:
+                cached = torch.full((rows, progs.window), -1,
+                                    dtype=torch.int32, device=self.device)
+                self._absent_payloads[rows] = cached
+            return cached
+        if tuple(payload.shape) != (rows, progs.window) or \
+                payload.dtype != torch.int32 or \
+                payload.device.type != self.device.type:
+            raise ValueError(
+                f"payload must be [{rows}, {progs.window}] int32 on "
+                f"{self.device}, got {payload.dtype} "
+                f"{tuple(payload.shape)} on {payload.device}")
+        return payload
+
+    def _dispatch_locked(self, step, family6: bool, batch, ts,
+                         payload: Optional[torch.Tensor] = None,
+                         rows: int = 0):
+        """One step of either family (lock held), the flow table,
+        provenance and the optional stages threaded through when they
+        are on."""
         if self._tables is None:
             raise RuntimeError("no policy loaded")
         tables, ct, statics = (self._tables6, self.ct6, self._statics6) \
@@ -456,6 +778,8 @@ class Datapath:
             if tick % self._flow_claim_every:
                 statics = dict(statics, flow_claim_budget=0)
         outs = step(tables, ct.state, self.counters, batch, ts, flows_in,
+                    self._payload_in(payload, rows), self.threat_state,
+                    self.analytics_state,
                     with_provenance=self.provenance_enabled, **statics)
         verdict, event, identity, nat = outs[:4]
         ct.state = outs[4]
@@ -463,37 +787,53 @@ class Datapath:
         if flows_in is not None:
             self.flows.state = outs[tail]
             tail += 1
+        if self._threat is not None:
+            self.threat_state, self.last_threat = outs[tail:tail + 2]
+            tail += 2
+        if self.analytics_state is not None:
+            self.analytics_state = outs[tail]
+            tail += 1
         if self.provenance_enabled:
             self.last_provenance = Provenance(outs[tail], outs[tail + 1])
         return verdict, event, identity, nat
 
-    def process(self, pkt: FullPacketBatch, now: Optional[int] = None):
+    def process(self, pkt: FullPacketBatch, now: Optional[int] = None,
+                payload: Optional[torch.Tensor] = None):
         """Classify a batch.  Returns (verdict, event, identity, nat),
         device tensors; nat carries the DNAT'd forward tuple and the
-        rev-NAT'd reply tuple."""
+        rev-NAT'd reply tuple.  ``payload`` is the [B, W] int32 L7
+        payload lane on this engine's device
+        (``l7/fast.encode_payloads``), read by the fast-verdict stage
+        when it is on and ignored otherwise."""
         ts = self._timestamp(now)
         with self._lock:
             return self._dispatch_locked(full_datapath_step, False, pkt,
-                                         ts)
+                                         ts, payload,
+                                         int(pkt.endpoint.shape[0]))
 
-    def process6(self, pkt: FullPacketBatch6, now: Optional[int] = None):
+    def process6(self, pkt: FullPacketBatch6, now: Optional[int] = None,
+                 payload: Optional[torch.Tensor] = None):
         """Classify a v6 batch (bpf_lxc.c:745 ipv6_policy).  Returns
-        (verdict, event, identity, nat6), device tensors."""
+        (verdict, event, identity, nat6), device tensors; ``payload`` as
+        for ``process``."""
         ts = self._timestamp(now)
         with self._lock:
             return self._dispatch_locked(full_datapath_step6, True, pkt,
-                                         ts)
+                                         ts, payload,
+                                         int(pkt.sport.shape[0]))
 
     def process_packed(self, packed: torch.Tensor,
-                       now: Optional[int] = None):
+                       now: Optional[int] = None,
+                       payload: Optional[torch.Tensor] = None):
         """Classify a batch given as ONE [10, B] int32 field matrix on
         this engine's device (``pipeline.PACKED_FIELDS`` order): the
         serving path's entry, one host-to-device copy per batch.  Same
-        outputs as ``process``."""
+        outputs as ``process``; ``payload`` rides beside the matrix."""
         ts = self._timestamp(now)
         with self._lock:
             return self._dispatch_locked(full_datapath_step_packed,
-                                         False, packed, ts)
+                                         False, packed, ts, payload,
+                                         int(packed.shape[1]))
 
     # -- conntrack surface ------------------------------------------------
 

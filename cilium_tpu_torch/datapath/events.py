@@ -25,7 +25,7 @@ DROP_PREFILTER = -133       # XDP prefilter (bpf_xdp.c check_filters)
 DROP_POLICY_L7 = -134
 DROP_INVALID = -135
 DROP_UNKNOWN_TARGET = -136  # icmp6.h ACTION_UNKNOWN_ICMP6_NS analog
-DROP_THREAT = -137          # inline threat scoring (not ported yet)
+DROP_THREAT = -137          # inline threat scoring (threat/stage.py)
 
 DROP_NAMES = {
     DROP_POLICY: "Policy denied (L3/L4)",
@@ -66,11 +66,17 @@ TIER_L4_RULE = 4         # exact or L4-wildcard key, plain allow
 TIER_L7_REDIRECT = 5     # matched key carries a proxy port
 TIER_DENY = 6            # no key matched (policy/fragment drop)
 TIER_LB = 7              # local service tier (ICMPv6 responder, v6 only)
-TIER_L7_FAST_ALLOW = 8   # on-device L7 fast verdicts (not ported yet)
-TIER_L7_FAST_DENY = 9
-TIER_THREAT_DROP = 10    # inline threat scoring (not ported yet)
-TIER_THREAT_RATELIMIT = 11
-TIER_THREAT_REDIRECT = 12
+# On-device L7 fast verdicts (pipeline._l7_fast_stage): the matched key
+# carried a proxy port, but its rule set is first-bytes-decidable and the
+# payload window decided inline; truncated or absent payloads keep
+# TIER_L7_REDIRECT.
+TIER_L7_FAST_ALLOW = 8   # DFA matched: allowed inline
+TIER_L7_FAST_DENY = 9    # DFA refused: denied inline (DROP_POLICY_L7)
+# Inline threat scoring (threat/stage.py) overrode an allow-or-redirect
+# verdict in enforce mode; shadow scoring never re-tiers.
+TIER_THREAT_DROP = 10       # score >= drop threshold -> DROP_THREAT
+TIER_THREAT_RATELIMIT = 11  # rate-limit arm: bucket dry + prand drop
+TIER_THREAT_REDIRECT = 12   # score >= redirect threshold -> proxy
 
 TIER_NAMES = {
     TIER_NONE: "none",

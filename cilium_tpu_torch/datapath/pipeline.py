@@ -8,9 +8,14 @@ counters; ``full_datapath_step`` adds the XDP prefilter, service DNAT,
 conntrack, CT create, reply rev-NAT and the overlay encap;
 ``full_datapath_step6`` is its v6 twin with the ICMPv6/NDP responder.
 Both family steps take an optional Hubble flow table (``flows``) that
-they update at their end.  Eager torch: the counters, the CT table and
-the flow table are updated in place, and no step reads a device value
-on the host.
+they update at their end, and three optional stages, each behind its own
+flag: the L7 fast verdict over a [B, W] payload lane
+(``with_l7_fast``), inline threat scoring (``with_threat``,
+``threat/stage.py``) and traffic analytics (``with_analytics``,
+``analytics/stage.py``).  With every flag off a step runs exactly the
+operations it ran before the stages existed.  Eager torch: the counters,
+the CT, flow, threat and analytics state are updated in place, and no
+step reads a device value on the host.
 """
 
 from __future__ import annotations
@@ -21,20 +26,26 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analytics.stage import analytics_stage
 from ..compiler.lpm import CompiledLPM
 from ..compiler.policy_tables import CompiledPolicy
 from ..device import DeviceLike, resolve_device
 from ..compiler.lpm import CompiledLPM6
 from ..hubble.aggregation import FlowState, flow_update_step
 from ..ops.hashtab_ops import fold6
+from ..ops.dfa_engine import _stride_scan
 from ..ops.lpm_ops import lpm6_lookup, lpm_lookup
-from .codes import VERDICT_DROP, VERDICT_DROP_FRAG, WORLD_IDENTITY
+from ..threat.stage import threat_stage
+from .codes import (VERDICT_DROP, VERDICT_DROP_FRAG, VERDICT_DROP_L7,
+                    VERDICT_DROP_THREAT, WORLD_IDENTITY)
 from .conntrack import CT_NEW, CT_RELATED, CT_REPLY, CTBatch, ct_step
-from .events import (DROP_FRAG_NOSUPPORT, DROP_POLICY, DROP_PREFILTER,
-                     DROP_UNKNOWN_TARGET, ICMP6_ECHO_REPLY,
-                     ICMP6_NS_REPLY, TIER_CT_ESTABLISHED, TIER_LB,
-                     TIER_PREFILTER, TRACE_TO_LXC, TRACE_TO_OVERLAY,
-                     TRACE_TO_PROXY)
+from .events import (DROP_FRAG_NOSUPPORT, DROP_POLICY, DROP_POLICY_L7,
+                     DROP_PREFILTER, DROP_THREAT, DROP_UNKNOWN_TARGET,
+                     ICMP6_ECHO_REPLY, ICMP6_NS_REPLY, TIER_CT_ESTABLISHED,
+                     TIER_L7_FAST_ALLOW, TIER_L7_FAST_DENY, TIER_LB,
+                     TIER_PREFILTER, TIER_THREAT_DROP,
+                     TIER_THREAT_RATELIMIT, TIER_THREAT_REDIRECT,
+                     TRACE_TO_LXC, TRACE_TO_OVERLAY, TRACE_TO_PROXY)
 from .lb import LB6Tables, LBTables, lb6_rev_nat, lb6_step, lb_rev_nat, \
     lb_step
 from .verdict import Counters, PacketBatch, verdict_step
@@ -173,7 +184,10 @@ class FullTables(NamedTuple):
     map LPM (pod CIDR -> tunnel endpoint node IP, pkg/maps/tunnel);
     ``ep_identity`` [E] is each local endpoint slot's own identity, the
     SECLABEL stamped into the tunnel key on encap.  ``tun_*`` None
-    disables the overlay stage."""
+    disables the overlay stage.  ``l7_*`` are the L7 fast-verdict tables
+    (``l7/fast.L7FastPrograms``) and ``tm_*`` the threat model's
+    (``threat/model.ThreatModel.tables()``); None while their stage is
+    off."""
 
     datapath: DatapathTables          # policy + ipcache LPM
     lb: LBTables                      # service tables
@@ -188,6 +202,17 @@ class FullTables(NamedTuple):
     tun_value: Optional[torch.Tensor] = None
     tun_plens: Optional[torch.Tensor] = None
     ep_identity: Optional[torch.Tensor] = None
+    l7_prog: Optional[torch.Tensor] = None    # [E, S] slot -> program (-1)
+    l7_flat: Optional[torch.Tensor] = None    # [S * c1**k] stride table
+    l7_map: Optional[torch.Tensor] = None     # [258] byte+2 -> class
+    l7_accept: Optional[torch.Tensor] = None  # [S] 0/1 per-state accept
+    l7_starts: Optional[torch.Tensor] = None  # [R] per-regex start state
+    l7_pmask: Optional[torch.Tensor] = None   # [P, R] program -> regexes
+    tm_w1: Optional[torch.Tensor] = None      # [F, H] layer-1 weights
+    tm_b1: Optional[torch.Tensor] = None      # [H] layer-1 bias
+    tm_w2: Optional[torch.Tensor] = None      # [H] layer-2 weights
+    tm_b2: Optional[torch.Tensor] = None      # [1] layer-2 bias
+    tm_cfg: Optional[torch.Tensor] = None     # [8] thresholds/mode/gen
 
 
 def _flow_identities(ep_identity, endpoint, peer_identity, direction):
@@ -230,25 +255,127 @@ def full_datapath_step_packed(tables: FullTables, ct: torch.Tensor,
                               counters: Counters, packed: torch.Tensor,
                               now: torch.Tensor,
                               flows: Optional[FlowState] = None,
-                              **statics):
+                              payload: Optional[torch.Tensor] = None,
+                              threat=None, analytics=None, **statics):
     """``full_datapath_step`` over ONE [10, B] int32 field matrix in
     ``PACKED_FIELDS`` order (one host-to-device copy per batch); the
-    fields are row views of it."""
+    fields are row views of it.  ``payload`` is the [B, W] L7 payload
+    lane, its own tensor beside the matrix."""
     pkt = FullPacketBatch(**{f: packed[i]
                              for i, f in enumerate(PACKED_FIELDS)})
     return full_datapath_step(tables, ct, counters, pkt, now, flows,
-                              **statics)
+                              payload, threat, analytics, **statics)
+
+
+def _l7_fast_stage(tables, payload: torch.Tensor,
+                   pol_verdict: torch.Tensor, pol_slot: torch.Tensor, *,
+                   k: int, c1: int):
+    """The L7 fast verdict (``l7/fast.py`` tables): where the policy
+    verdict is a redirect whose matched slot carries a first-bytes-
+    decidable program and the payload window is present and not
+    truncated, walk the fused k-stride DFA and allow or deny inline.
+    Everything else keeps its redirect (fail to redirect, never open).
+
+    Returns (verdict', fast_allow [B], fast_deny [B])."""
+    prog_flat = tables.l7_prog.reshape(-1)
+    # the slot and program indices clipped into their tables, as the
+    # reference clips them (a miss has slot -1)
+    slot = torch.clamp(pol_slot, 0, prog_flat.shape[0] - 1).long()
+    prog = torch.where(pol_slot >= 0, prog_flat[slot], -1)
+    eligible = (pol_verdict > 0) & (prog >= 0)
+    # an absent (all -1) payload or a truncated (-2 poisoned) one cannot
+    # be judged from its first bytes: those flows go to the proxy
+    has_payload = payload[:, 0] >= 0
+    truncated = (payload == -2).any(dim=1)
+    # class map, stride pack and ceil(W/k) dependent gathers: the
+    # ops/dfa_engine stride walk.  The lane's bytes are -2..255, so
+    # l7_map[byte + 2] is in range; the clamp keeps any other value in
+    # the table's 258 rows, as the reference's gather clamps.
+    b = payload.shape[0]
+    states = tables.l7_starts[None, :].expand(b, -1)
+    final = _stride_scan(k, c1, tables.l7_flat, tables.l7_map, states,
+                         torch.clamp(payload, -2, 255))
+    hit = tables.l7_accept[final.long()] != 0             # [B, R]
+    n_prog = tables.l7_pmask.shape[0]
+    own = tables.l7_pmask[torch.clamp(prog, 0, n_prog - 1).long()]
+    l7_allow = (hit & (own != 0)).any(dim=1)
+    fast = eligible & has_payload & ~truncated
+    fast_allow = fast & l7_allow
+    fast_deny = fast & ~l7_allow
+    verdict = torch.where(fast_allow, 0,
+                          torch.where(fast_deny, VERDICT_DROP_L7,
+                                      pol_verdict))
+    return verdict, fast_allow, fast_deny
+
+
+def _threat(tables, threat, flows, verdict, pkt, identity, dport,
+            established, saddr_w, daddr_w, now, *, flow_slots: int,
+            flow_probe: int, threat_window_s: int, threat_stripe: int,
+            exempt=None):
+    """The inline threat-scoring stage of either family
+    (``threat/stage.threat_stage``), keyed like the flow tail.  It runs
+    before the flow tail, which updates the flow table in place, so its
+    probe reads the table as it was before this step."""
+    t_src, t_dst = _flow_identities(tables.ep_identity, pkt.endpoint,
+                                    identity, pkt.direction)
+    return threat_stage(
+        tables, threat, flows, verdict, identity=identity, dport=dport,
+        proto=pkt.proto, tcp_flags=pkt.tcp_flags, length=pkt.length,
+        is_fragment=pkt.is_fragment, established=established,
+        saddr_w=saddr_w, daddr_w=daddr_w, sport=pkt.sport,
+        flow_src=t_src, flow_dst=t_dst, now=now,
+        window_s=threat_window_s, flow_slots=flow_slots,
+        flow_probe=flow_probe, stripe=threat_stripe, exempt=exempt)
+
+
+def _analytics(analytics, pkt, identity, dport, verdict, saddr_key,
+               daddr_key, now, *, analytics_depth: int,
+               analytics_lanes: int, analytics_stripe: int):
+    """The traffic-analytics stage of either family
+    (``analytics/stage.analytics_stage``) over the final verdicts."""
+    return analytics_stage(
+        analytics, identity=identity, dport=dport, proto=pkt.proto,
+        sport=pkt.sport, length=pkt.length, verdict=verdict,
+        saddr_key=saddr_key, daddr_key=daddr_key, now=now,
+        depth=analytics_depth, lanes=analytics_lanes,
+        stripe=analytics_stripe)
+
+
+def _l7_tiers(pol_tier, fast_allow, fast_deny, i32):
+    """Where the fast stage decided, it owns the policy tier (the slot
+    stays the matched redirect entry)."""
+    return torch.where(fast_allow, i32(TIER_L7_FAST_ALLOW),
+                       torch.where(fast_deny, i32(TIER_L7_FAST_DENY),
+                                   pol_tier))
+
+
+def _threat_tiers(tier, thr_drop, thr_redir, rl_drop, i32):
+    """Where the threat stage overrode the verdict, it owns the tier
+    (the slot keeps the policy entry that allowed the traffic)."""
+    return torch.where(
+        rl_drop, i32(TIER_THREAT_RATELIMIT),
+        torch.where(thr_drop, i32(TIER_THREAT_DROP),
+                    torch.where(thr_redir, i32(TIER_THREAT_REDIRECT),
+                                tier)))
 
 
 def full_datapath_step(tables: FullTables, ct: torch.Tensor,
                        counters: Counters, pkt: FullPacketBatch,
                        now: torch.Tensor,
-                       flows: Optional[FlowState] = None, *,
+                       flows: Optional[FlowState] = None,
+                       payload: Optional[torch.Tensor] = None,
+                       threat=None, analytics=None, *,
                        policy_probe: int, lpm_probe: int, pf_probe: int,
                        lb_probe: int, ct_slots: int, ct_probe: int,
                        tun_probe: int = 0, flow_slots: int = 0,
                        flow_probe: int = 0, flow_claim_budget: int = 1024,
-                       with_provenance: bool = False):
+                       with_provenance: bool = False,
+                       with_l7_fast: bool = False, l7_k: int = 1,
+                       l7_c1: int = 2, with_threat: bool = False,
+                       threat_window_s: int = 8, threat_stripe: int = 4,
+                       with_analytics: bool = False,
+                       analytics_depth: int = 2, analytics_lanes: int = 4,
+                       analytics_stripe: int = 16):
     """The batched egress/ingress path (bpf_lxc.c:432
     handle_ipv4_from_lxc): XDP prefilter drop, service DNAT (lb4_local),
     conntrack lookup, ipcache identity, policy verdict for CT_NEW flows,
@@ -261,7 +388,17 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
     nat (a NATResult); with ``flows`` and ``flow_slots`` > 0 the flow
     table is updated in place and appended; ``with_provenance`` appends
     the matched policy slot (-1 = none) and the decision tier.  Verdict:
-    -N drop code, 0 allow, > 0 proxy port."""
+    -N drop code, 0 allow, > 0 proxy port.
+
+    The optional stages, each off unless its flag is set:
+    ``with_l7_fast`` decides redirects to first-bytes-decidable programs
+    inline from ``payload`` ([B, W] int32), allow or VERDICT_DROP_L7;
+    ``with_threat`` scores every packet (``threat``, a ThreatState,
+    updated in place) and in enforce mode may drop, redirect or
+    rate-limit, appending (threat, threat_out [B]) after the flow
+    table; ``with_analytics`` folds the final verdicts into
+    ``analytics`` (an AnalyticsState, updated in place) and appends it
+    after those."""
     dev = pkt.saddr.device
     i32 = lambda x: torch.full((), x, dtype=torch.int32,  # noqa: E731
                                device=dev)
@@ -308,9 +445,18 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
                      dport=dport, proto=pkt.proto,
                      direction=pkt.direction, length=pkt.length,
                      is_fragment=pkt.is_fragment)
+    # (the fast stage needs the matched slot even with provenance off)
     pol = verdict_step(dp.key_id, dp.key_meta, dp.value, counters, vb,
-                       policy_probe, with_provenance=with_provenance)
+                       policy_probe,
+                       with_provenance=with_provenance or with_l7_fast)
     pol_verdict, counters = pol[0], pol[1]
+
+    # 5.5 L7 fast verdict: a fast-allowed flow creates its CT entry with
+    # proxy port 0 (the connection bypasses the proxy), a fast-denied
+    # flow creates none.
+    if with_l7_fast:
+        pol_verdict, fast_allow, fast_deny = _l7_fast_stage(
+            tables, payload, pol_verdict, pol[2], k=l7_k, c1=l7_c1)
 
     # 6. CT step: creation gated on the policy allowing the flow
     # (bpf_lxc.c:545); prefilter-dropped packets neither create nor
@@ -329,6 +475,17 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
     verdict = torch.where(pf_hit, i32(VERDICT_DROP),
                           torch.where(established, ct_proxy, pol_verdict))
 
+    # 7.5 Threat scoring: its arms override allow and redirect verdicts
+    # before the event and overlay stages, so a threat-dropped packet
+    # never encaps.
+    if with_threat:
+        verdict, threat, threat_out, thr_drop, thr_redir, rl_drop = \
+            _threat(tables, threat, flows, verdict, pkt, identity, dport,
+                    established, pkt.saddr, daddr, now,
+                    flow_slots=flow_slots, flow_probe=flow_probe,
+                    threat_window_s=threat_window_s,
+                    threat_stripe=threat_stripe)
+
     # 8. Reply-path reverse NAT (lb.h lb4_rev_nat).  ``lb_rev_nat``
     # clips its index, as the reference's lb_rev_nat_arrays does.
     is_reply = (ct_verdict == CT_REPLY) | (ct_verdict == CT_RELATED)
@@ -341,6 +498,22 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
                                 torch.where(verdict > 0,
                                             i32(TRACE_TO_PROXY),
                                             i32(TRACE_TO_LXC)))))
+    # VERDICT_DROP_L7 and VERDICT_DROP_THREAT come only from their stages
+    if with_l7_fast:
+        event = torch.where(verdict == VERDICT_DROP_L7, i32(DROP_POLICY_L7),
+                            event)
+    if with_threat:
+        event = torch.where(verdict == VERDICT_DROP_THREAT,
+                            i32(DROP_THREAT), event)
+
+    # 8.5 Traffic analytics over the final verdicts (after the threat
+    # stage, so the drops metric counts its drops too).
+    if with_analytics:
+        analytics = _analytics(analytics, pkt, identity, dport, verdict,
+                               pkt.saddr, daddr, now,
+                               analytics_depth=analytics_depth,
+                               analytics_lanes=analytics_lanes,
+                               analytics_stripe=analytics_stripe)
 
     # 9. Overlay encap (encap.h encap_and_redirect): allowed egress
     # packets whose DNAT'd destination lies in a peer node's pod CIDR
@@ -374,13 +547,21 @@ def full_datapath_step(tables: FullTables, ct: torch.Tensor,
             flows, tables.ep_identity, pkt, identity, dport, event, now,
             flow_slots=flow_slots, flow_probe=flow_probe,
             flow_claim_budget=flow_claim_budget),)
+    if with_threat:
+        out = out + (threat, threat_out)
+    if with_analytics:
+        out = out + (analytics,)
     if with_provenance:
         # 11. Provenance: the final-verdict precedence of step 7.
         pol_slot, pol_tier = pol[2], pol[3]
+        if with_l7_fast:
+            pol_tier = _l7_tiers(pol_tier, fast_allow, fast_deny, i32)
         tier = torch.where(pf_hit, i32(TIER_PREFILTER),
                            torch.where(established,
                                        i32(TIER_CT_ESTABLISHED), pol_tier))
         slot = torch.where(pf_hit | established, i32(-1), pol_slot)
+        if with_threat:
+            tier = _threat_tiers(tier, thr_drop, thr_redir, rl_drop, i32)
         out = out + (slot, tier)
     return out
 
@@ -448,8 +629,9 @@ class NAT6Result(NamedTuple):
 
 
 class FullTables6(NamedTuple):
-    """All device state of the v6 step.  The policy tensors and
-    ``ep_identity`` are the v4 tables' own."""
+    """All device state of the v6 step.  The policy tensors,
+    ``ep_identity`` and the optional stages' ``l7_*`` and ``tm_*`` tables
+    are the v4 tables' own."""
 
     key_id: torch.Tensor      # shared policy tables [E, S]
     key_meta: torch.Tensor
@@ -461,6 +643,17 @@ class FullTables6(NamedTuple):
     # disables the ICMPv6 responder
     router_ip6: Optional[torch.Tensor] = None
     ep_identity: Optional[torch.Tensor] = None
+    l7_prog: Optional[torch.Tensor] = None
+    l7_flat: Optional[torch.Tensor] = None
+    l7_map: Optional[torch.Tensor] = None
+    l7_accept: Optional[torch.Tensor] = None
+    l7_starts: Optional[torch.Tensor] = None
+    l7_pmask: Optional[torch.Tensor] = None
+    tm_w1: Optional[torch.Tensor] = None
+    tm_b1: Optional[torch.Tensor] = None
+    tm_w2: Optional[torch.Tensor] = None
+    tm_b2: Optional[torch.Tensor] = None
+    tm_cfg: Optional[torch.Tensor] = None
 
 
 def lpm6_tables(c: CompiledLPM6, device: DeviceLike = None) -> LPM6Tables:
@@ -481,18 +674,29 @@ def _lpm6(t: LPM6Tables, addrs: torch.Tensor, probe: int):
 def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
                         counters: Counters, pkt: FullPacketBatch6,
                         now: torch.Tensor,
-                        flows: Optional[FlowState] = None, *,
+                        flows: Optional[FlowState] = None,
+                        payload: Optional[torch.Tensor] = None,
+                        threat=None, analytics=None, *,
                         policy_probe: int, lpm6_probe: int,
                         pf6_probe: int, ct_slots: int, ct_probe: int,
                         lb6_probe: int = 0, flow_slots: int = 0,
                         flow_probe: int = 0, flow_claim_budget: int = 1024,
-                        with_provenance: bool = False):
+                        with_provenance: bool = False,
+                        with_l7_fast: bool = False, l7_k: int = 1,
+                        l7_c1: int = 2, with_threat: bool = False,
+                        threat_window_s: int = 8, threat_stripe: int = 4,
+                        with_analytics: bool = False,
+                        analytics_depth: int = 2,
+                        analytics_lanes: int = 4,
+                        analytics_stripe: int = 16):
     """The v6 twin of ``full_datapath_step`` (bpf_lxc.c:745
     ipv6_policy): prefilter drop, the ICMPv6/NDP responder, service DNAT
     (lb6_local), conntrack on folded tuples, ipcache identity, policy
     verdict for CT_NEW flows, CT create gated on the verdict, reply
-    rev-NAT (lb6_rev_nat).  Same outputs and in-place updates as the v4
-    step, with a NAT6Result."""
+    rev-NAT (lb6_rev_nat).  Same outputs, in-place updates and optional
+    stages as the v4 step, with a NAT6Result; the threat and analytics
+    stages take the CT address folds as address words, and the threat
+    stage never overrides a row the ICMPv6 responder answered."""
     dev = pkt.sport.device
     b = pkt.sport.shape[0]
     i32 = lambda x: torch.full((), x, dtype=torch.int32,  # noqa: E731
@@ -563,8 +767,13 @@ def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
     pol = verdict_step(tables.key_id, tables.key_meta, tables.value,
                        counters, vb, policy_probe,
                        count_mask=~icmp6_handled,
-                       with_provenance=with_provenance)
+                       with_provenance=with_provenance or with_l7_fast)
     pol_verdict, counters = pol[0], pol[1]
+
+    # 5.5 L7 fast verdict (the v4 stage, on the shared tables).
+    if with_l7_fast:
+        pol_verdict, fast_allow, fast_deny = _l7_fast_stage(
+            tables, payload, pol_verdict, pol[2], k=l7_k, c1=l7_c1)
 
     # 6. CT step, creation gated on the verdict; locally answered
     # ICMPv6 neither creates nor touches CT state.
@@ -582,6 +791,17 @@ def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
                     torch.where(ns_answer | echo_answer, i32(0),
                                 torch.where(established, ct_proxy,
                                             pol_verdict))))
+
+    # 6.5 Threat scoring (the v4 stage; the addresses enter its hash as
+    # their CT folds); rows the ICMPv6 responder answered are scored
+    # but never overridden.
+    if with_threat:
+        verdict, threat, threat_out, thr_drop, thr_redir, rl_drop = \
+            _threat(tables, threat, flows, verdict, pkt, identity, dport,
+                    established, ctb.saddr, ctb.daddr, now,
+                    flow_slots=flow_slots, flow_probe=flow_probe,
+                    threat_window_s=threat_window_s,
+                    threat_stripe=threat_stripe, exempt=icmp6_handled)
 
     # 7. Reply-path reverse NAT (lb6_rev_nat).
     is_reply = (ct_verdict == CT_REPLY) | (ct_verdict == CT_RELATED)
@@ -602,6 +822,21 @@ def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
                                 torch.where(verdict > 0,
                                             i32(TRACE_TO_PROXY),
                                             i32(TRACE_TO_LXC))))))))
+    if with_l7_fast:
+        event = torch.where(verdict == VERDICT_DROP_L7, i32(DROP_POLICY_L7),
+                            event)
+    if with_threat:
+        event = torch.where(verdict == VERDICT_DROP_THREAT,
+                            i32(DROP_THREAT), event)
+
+    # 7.5 Traffic analytics (the v4 stage; the address words are the CT
+    # folds).
+    if with_analytics:
+        analytics = _analytics(analytics, pkt, identity, dport, verdict,
+                               ctb.saddr, ctb.daddr, now,
+                               analytics_depth=analytics_depth,
+                               analytics_lanes=analytics_lanes,
+                               analytics_stripe=analytics_stripe)
 
     nat = NAT6Result(daddr=daddr, dport=dport, saddr=nat_saddr,
                      sport=nat_sport, rev_nat=ct_rev_nat)
@@ -613,10 +848,16 @@ def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
             flows, tables.ep_identity, pkt, identity, dport, event, now,
             flow_slots=flow_slots, flow_probe=flow_probe,
             flow_claim_budget=flow_claim_budget),)
+    if with_threat:
+        out = out + (threat, threat_out)
+    if with_analytics:
+        out = out + (analytics,)
     if with_provenance:
         # Provenance: prefilter, then the ICMPv6 responder (the local
         # service tier), then CT, then policy.
         pol_slot, pol_tier = pol[2], pol[3]
+        if with_l7_fast:
+            pol_tier = _l7_tiers(pol_tier, fast_allow, fast_deny, i32)
         tier = torch.where(
             pf_hit, i32(TIER_PREFILTER),
             torch.where(icmp6_handled, i32(TIER_LB),
@@ -624,5 +865,7 @@ def full_datapath_step6(tables: FullTables6, ct: torch.Tensor,
                                     pol_tier)))
         slot = torch.where(pf_hit | icmp6_handled | established, i32(-1),
                            pol_slot)
+        if with_threat:
+            tier = _threat_tiers(tier, thr_drop, thr_redir, rl_drop, i32)
         out = out + (slot, tier)
     return out

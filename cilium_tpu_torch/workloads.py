@@ -30,13 +30,21 @@ add the entry kinds and fragments that traffic never reaches.
 ``config{3,4,5}_*`` request makers are the L7 rule sets and requests of
 BASELINE configs 3-5 (``bench_suite.py``'s http-regex, kafka-acl and
 fqdn benches).
+
+``l7_serving_state`` / ``l7_serving_packets`` (``l7_serving_packets6``)
+serve the fused optional stages: the v4 state with the L7 fast-verdict
+bench's two redirects (HTTP ingress :80, DNS egress :53) on every
+endpoint, 10% of the pool flows aimed at them and a payload per row;
+``threat_enforce_config`` and ``ANALYTICS`` are the threat and analytics
+settings the serving runs use.
 """
 
 from __future__ import annotations
 
+import ipaddress
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +60,10 @@ from .datapath.lb import (Backend, Backend6, Service, Service6, compile_lb,
 from .datapath.pipeline import (PACKED_FIELDS, FullPacketBatch6,
                                 RawPacketBatch, make_step)
 from .device import DeviceLike, resolve_device
+from .l7.fast import (FAST_DNS, FAST_HTTP, FastProgramSpec,
+                      L7FastPrograms, build_fast_programs, classify_dns,
+                      classify_http, dns_match_string, encode_payloads,
+                      http_match_string)
 from .l7.http import HTTPRequest
 from .l7.kafka import KafkaRequest
 from .ops.bucket_ops import BucketVerdictEngine
@@ -61,6 +73,7 @@ from .ops.lpm_ops import lpm_lookup
 from .policy.api import FQDNSelector, PortRuleHTTP, PortRuleKafka
 from .policy.mapstate import (EGRESS, INGRESS, PolicyKey, PolicyMapState,
                               PolicyMapStateEntry)
+from .threat.model import ThreatConfig
 
 
 def build_config1(n_rules: int = 100, n_endpoints: int = 16, seed: int = 7
@@ -944,3 +957,208 @@ def config5_names(batch: int) -> List[str]:
     ``db-<i>.prod.local``."""
     return [f"host{i}.example.com" if i % 2 else f"db-{i}.prod.local"
             for i in range(batch)]
+
+
+# ---------------------------------------------------------------------------
+# The fused optional stages: L7 fast verdicts, threat scoring, analytics
+# ---------------------------------------------------------------------------
+
+# bench_suite.py:276-292 (bench_l7_fast): the proxy ports and window
+L7_WINDOW = 128
+L7_HTTP_PORT = 15001
+L7_DNS_PORT = 15002
+# the two redirect peers' identities, outside the policy's 256.. and the
+# endpoints' 60000..
+L7_HTTP_ID = 50001
+L7_DNS_ID = 50002
+# share of the pool flows aimed at the redirects (half HTTP, half DNS),
+# and the shares of those flows' rows whose payload is overlong (-2
+# poison) or absent (all -1)
+L7_FLOW_SHARE = 0.10
+L7_BAD_SHARES = {"overlong": 0.05, "absent": 0.05}
+# bench_suite.py:332-336: the names of the DNS mix
+L7_DNS_NAMES = ("host1.example.com", "api.internal.svc",
+                "db-3.prod.local", "evil.attacker.net")
+# the daemon's analytics defaults (utils/option.py:343-347)
+ANALYTICS = {"width": 1 << 12, "depth": 2, "lanes": 4, "stripe": 16}
+# the daemon's threat defaults: buckets, window, stripe
+THREAT = {"buckets": 1 << 10, "window_s": 8, "stripe": 4}
+
+
+def threat_enforce_config(redirect: bool = False) -> ThreatConfig:
+    """The enforce leg of ``bench_suite.py:1116-1118`` (drop 245,
+    rate-limit 170, 1e5 tokens/s, burst 2**16); ``redirect`` adds a
+    redirect arm at score 200 to port 15003."""
+    return ThreatConfig(mode="enforce", drop_score=245,
+                        ratelimit_score=170, rate_per_s=1e5,
+                        burst=1 << 16, generation=3,
+                        redirect_score=200 if redirect else 0,
+                        redirect_port=15003 if redirect else 0)
+
+
+@dataclass
+class L7ServingState:
+    """A v4 serving state (``v4``) whose every endpoint also redirects
+    HTTP ingress :80 from ``http_net`` to 15001 and DNS egress :53 to
+    ``dns_net`` to 15002, the fused ``programs`` of the bench's rules
+    for those ports, and the payload ``table``: one encoded row per
+    string of ``strings`` (the 18 requests, the 4 names, an overlong
+    request, and None for absent).  ``base`` is the state without the
+    redirects, whose prefixes the pool traffic is drawn from."""
+
+    v4: V4ServingState
+    base: V4ServingState
+    programs: L7FastPrograms
+    http_net: int
+    dns_net: int
+    strings: List[Optional[str]]
+    table: np.ndarray
+
+    @property
+    def n_http(self) -> int:
+        return len(HTTP_PATHS) * len(HTTP_METHODS)
+
+    @property
+    def overlong_row(self) -> int:
+        return len(self.strings) - 2
+
+    @property
+    def absent_row(self) -> int:
+        return len(self.strings) - 1
+
+
+def l7_fast_programs(window: int = L7_WINDOW) -> L7FastPrograms:
+    """The bench's fused programs: the 4 HTTP rules on 15001, the 3
+    FQDN selectors on 15002."""
+    return build_fast_programs(
+        [FastProgramSpec(port=L7_HTTP_PORT, protocol=FAST_HTTP,
+                         patterns=tuple(classify_http(HTTP_RULES))),
+         FastProgramSpec(port=L7_DNS_PORT, protocol=FAST_DNS,
+                         patterns=tuple(classify_dns(FQDN_SELECTORS)))],
+        window=window)
+
+
+def _free_slash16(v4: V4ServingState, count: int) -> List[int]:
+    """``count`` /16 networks in 100.64.0.0/10 that overlap no ipcache
+    prefix, prefilter CIDR or pod CIDR of ``v4``."""
+    taken = [ipaddress.ip_network(c, strict=False) for c in
+             list(v4.prefixes) + list(v4.prefilter) + list(v4.tunnel)]
+    out = []
+    for second in range(64, 128):
+        net = ipaddress.ip_network(f"100.{second}.0.0/16")
+        if not any(net.overlaps(t) for t in taken):
+            out.append(int(net.network_address))
+            if len(out) == count:
+                return out
+    raise ValueError("no free /16 in 100.64.0.0/10")
+
+
+def l7_serving_state(v4: V4ServingState,
+                     window: int = L7_WINDOW) -> L7ServingState:
+    """``v4`` plus the two redirects of the L7 fast-verdict bench on
+    every endpoint and their peers' two /16 prefixes in the ipcache
+    (overlapping none of the state's own); ``v4`` is not changed."""
+    http_net, dns_net = _free_slash16(v4, 2)
+    states = []
+    for st in v4.states:
+        st = PolicyMapState(st)
+        st[PolicyKey(identity=L7_HTTP_ID, dest_port=80, nexthdr=6,
+                     direction=INGRESS)] = \
+            PolicyMapStateEntry(proxy_port=L7_HTTP_PORT)
+        st[PolicyKey(identity=L7_DNS_ID, dest_port=53, nexthdr=17,
+                     direction=EGRESS)] = \
+            PolicyMapStateEntry(proxy_port=L7_DNS_PORT)
+        states.append(st)
+    prefixes = dict(v4.prefixes)
+    for net, ident in ((http_net, L7_HTTP_ID), (dns_net, L7_DNS_ID)):
+        prefixes[f"{ipaddress.ip_address(net)}/16"] = ident
+    state = V4ServingState(
+        states=states, prefixes=prefixes, services=v4.services,
+        prefilter=v4.prefilter, tunnel=v4.tunnel,
+        ep_identity=v4.ep_identity, ident_port=v4.ident_port)
+    strings: List[Optional[str]] = [
+        http_match_string(m, p, "admin.example.com")
+        for p in HTTP_PATHS for m in HTTP_METHODS]
+    strings += [dns_match_string(n) for n in L7_DNS_NAMES]
+    strings += [http_match_string("GET", "/public/" + "p" * window,
+                                  "admin.example.com"), None]
+    return L7ServingState(v4=state, base=v4,
+                          programs=l7_fast_programs(window),
+                          http_net=http_net, dns_net=dns_net,
+                          strings=strings,
+                          table=encode_payloads(strings, window))
+
+
+def _aim_l7(state: L7ServingState, packed: np.ndarray, rows: Dict,
+            n_flows: int, rng) -> np.ndarray:
+    """Rewrite, in place, the forward TCP rows of every tenth pool flow
+    of a packed batch into L7 traffic: flows j = 0 (mod 20) become HTTP
+    ingress to the client on :80 from ``http_net``, j = 10 (mod 20) DNS
+    egress over UDP to ``dns_net`` :53.  ``rows`` maps a field to its
+    row of ``packed`` (for an address, the row of its v4 word).  Returns
+    each row's index into ``state.table``: the flow's request or name on
+    the L7 rows (``L7_BAD_SHARES`` of them overlong or absent), absent
+    elsewhere."""
+    u32 = lambda f: packed[rows[f]].view(np.uint32)  # noqa: E731
+    j = u32("saddr").astype(np.int64) - POOL_CLIENTS
+    every = int(round(1 / L7_FLOW_SHARE))
+    aimed = (packed[rows["direction"]] == 1) & \
+        (packed[rows["proto"]] == 6) & (j >= 0) & (j < n_flows) & \
+        (j % every == 0)
+    http = aimed & (j % (2 * every) == 0)
+    dns = aimed & ~http
+    client = u32("saddr").copy()
+    peer = (j & 0xFFFF).astype(np.uint32)
+    for f, val in (("saddr", np.where(http, state.http_net + peer,
+                                      client)),
+                   ("daddr", np.where(http, client,
+                                      np.where(dns, state.dns_net + peer,
+                                               u32("daddr"))))):
+        packed[rows[f]] = val.astype(np.uint32).view(np.int32)
+    packed[rows["direction"]][http] = 0
+    packed[rows["dport"]][http] = 80
+    packed[rows["dport"]][dns] = 53
+    packed[rows["proto"]][dns] = 17
+    packed[rows["tcp_flags"]][dns] = 0
+    b = packed.shape[1]
+    # a flow's request or name is its own, so a flow denied inline stays
+    # denied; overlong and absent payloads fall on rows at random
+    idx = np.full(b, state.absent_row, np.int32)
+    flow = j // (2 * every)
+    idx[http] = flow[http] % state.n_http
+    idx[dns] = state.n_http + flow[dns] % len(L7_DNS_NAMES)
+    u = rng.random(b)
+    bad_o = L7_BAD_SHARES["overlong"]
+    idx[aimed & (u < bad_o)] = state.overlong_row
+    idx[aimed & (u >= bad_o) & (u < bad_o + L7_BAD_SHARES["absent"])] = \
+        state.absent_row
+    return idx
+
+
+def l7_serving_packets(state: L7ServingState, batch: int,
+                       n_flows: int = 1 << 16, seed: int = 5
+                       ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless (packed [10, batch], payload index [batch]) pairs:
+    ``v4_serving_packets`` over ``state.base`` with every tenth pool
+    flow aimed at the redirects (``_aim_l7``).  The payload lane of a
+    batch is ``state.table[index]``."""
+    rng = np.random.default_rng(seed + 1000)
+    rows = {f: PACKED_FIELDS.index(f) for f in PACKED_FIELDS}
+    for packed in v4_serving_packets(state.base, batch, n_flows, seed):
+        yield packed, _aim_l7(state, packed, rows, n_flows, rng)
+
+
+def l7_serving_packets6(state: L7ServingState, batch: int,
+                        n_flows: int = 1 << 16, seed: int = 5
+                        ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """The v6 twin of ``l7_serving_packets``, served by ``v6_of(
+    state.v4)``: ``v6_serving_packets`` over ``v6_of(state.base)`` with
+    the same rewrite on the low words of the embedded addresses."""
+    rng = np.random.default_rng(seed + 1000)
+    rows, row = {}, 0
+    for f, width in PACKED6_FIELDS:
+        rows[f] = row + width - 1       # an address's v4 word is its last
+        row += width
+    for packed in v6_serving_packets(v6_of(state.base), batch, n_flows,
+                                     seed):
+        yield packed, _aim_l7(state, packed, rows, n_flows, rng)
