@@ -113,9 +113,38 @@ script exits non-zero:
    shares of a first pass, the sync check, 50 timed batches beside the
    flags-off leg's, a profile, and the time of each config, weight and
    epoch swap, with 0 rebuilds.
-10. the kernels line (the dense kernel's launches on the config-2, L7
-   and stage paths, 0, beside those of v4 and v6), the card's name and
-   power limit from nvidia-smi, and a last line ``{"ok": true,
+10. the serving tier (``phase_serving``) on the full-width v4 state with
+   flows on, behind the engine's shared lane (``Datapath.serving()``)
+   with the daemon's supervision knobs (10 s watchdog, 3 transient
+   faults, 1 s reset, 2**17 pending records).  ``serving-parity``: 16
+   submitter threads of 6 chunks of 1-4,096 records each (no two records
+   share a tuple), every ticket equal to a CPU twin's answer for its
+   chunk alone.  ``serving-latency``: ``bench_suite.py``'s latency-tier
+   protocol at 1-4,096 records (the sync round trip, the lane unloaded
+   and its streaming interval at depth 2; p50/p99 with sample counts
+   and the lane's host ms by stage; each timed lane window starts from
+   a fresh host view, so no oracle refresh falls in it), then
+   ``serving-coalesce``: 16 submitters x 40 single-record frames.
+   ``serving-throughput``: 16 submitters of 4,096-record chunks
+   coalesced up to 2**15, records/s, the mean batch, and the card's
+   busy share in a window under ``torch.profiler``.
+   ``verdict-service``: ``VerdictService`` on loopback, 4 clients x 64
+   frames (some with a payload lane, some past the lane's max_batch),
+   the answers equal to the same records sent straight to the lane.
+   ``serving-payload``: the L7 fast verdict on, 2 clients x 24 frames
+   with payloads wider than the engine's window through the service,
+   every answer equal to the CPU twin's.  Every leg so far must leave
+   the lane in mode ok with no fault, no fail-static batch, no failed
+   batch and no shed.  ``serving-fault``: 3 transient launch faults,
+   then one completion hung past a 0.5 s watchdog; each must take the
+   lane fail-static, every row of a seen and of a fresh chunk equal to
+   the fail-static precedence over the card's own CT, ipcache and
+   policy replay, and once healed the probe must rebuild the tables and
+   replay the recovery gate's rows on the card before the lane reads ok
+   and equals the CPU twin again.
+11. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage and serving paths, 0, beside those of v4 and v6), the card's
+   name and power limit from nvidia-smi, and a last line ``{"ok": true,
    "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -125,7 +154,9 @@ from __future__ import annotations
 
 import json
 import sys
+import threading
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -144,18 +175,26 @@ from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
 from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
                                               oracle_match)
 from cilium_tpu_torch.datapath import conntrack, engine, events, pipeline
-from cilium_tpu_torch.datapath.codes import VERDICT_DROP, WORLD_IDENTITY
-from cilium_tpu_torch.datapath.pipeline import PACKED_FIELDS
-from cilium_tpu_torch.device import cuda_ms, nvidia_smi, probe
+from cilium_tpu_torch.datapath.codes import (VERDICT_DROP, VERDICT_DROP_L7,
+                                             WORLD_IDENTITY)
+from cilium_tpu_torch.datapath.pipeline import (PACKED_FIELDS,
+                                                host_fail_static_step)
+from cilium_tpu_torch.datapath.serving import VerdictDispatcher
+from cilium_tpu_torch.datapath.supervisor import DeviceSupervisor
+from cilium_tpu_torch.device import cuda_ms, host_buffer, nvidia_smi, probe
 from cilium_tpu_torch.hubble.aggregation import EVENT_BIAS
 from cilium_tpu_torch.l7.dns import DNSPolicyEngine
+from cilium_tpu_torch.l7.fast import encode_payloads
 from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
                                       rule_to_combined_regex)
 from cilium_tpu_torch.l7.http import request_line as http_request_line
 from cilium_tpu_torch.l7.kafka import KafkaPolicyEngine
+from cilium_tpu_torch.native import PKT_HEADER_DTYPE
+from cilium_tpu_torch.observability import stages
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.ops.bucket_ops import BucketVerdictEngine
 from cilium_tpu_torch.ops.dfa_engine import DFAEngine
+from cilium_tpu_torch.ops.lpm_ops import lpm_lookup
 from cilium_tpu_torch.policy.api import PortRuleHTTP
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
@@ -164,10 +203,15 @@ from cilium_tpu_torch.profile_config1 import (V4_WARMUP, profile_run,
 from cilium_tpu_torch.threat.model import ThreatConfig, default_model
 from cilium_tpu_torch.threat.oracle import oracle_threat_step
 from cilium_tpu_torch.threat.trainer import ThreatTrainer
+from cilium_tpu_torch.utils.faultinject import DeviceFaultInjector
+from cilium_tpu_torch.verdict_service import (VerdictClient, VerdictService,
+                                              _decode_wire_payloads,
+                                              pack_wire_payloads)
 from cilium_tpu_torch.workloads import (ANALYTICS, CONFIG2_FIELDS,
                                         FQDN_SELECTORS, HTTP_RULES,
                                         KAFKA_RULES, L7_BAD_SHARES,
-                                        L7_FLOW_SHARE, THREAT, TRAFFICS,
+                                        L7_DNS_NAMES, L7_FLOW_SHARE,
+                                        L7_WINDOW, THREAT, TRAFFICS,
                                         V4_T0, Config1Run, Config2Run,
                                         V4Run, V6Run, build_config2,
                                         config3_requests, config4_requests,
@@ -1878,6 +1922,9 @@ def phase_stages(dev, state4) -> dict:
             payloads.append(table[torch.as_tensor(idx, device=dev).long()])
         dp = engine.Datapath(ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
                              device=dev)
+        # timed like V4Run / V6Run: the step alone, without telemetry's
+        # verdict-count reads
+        dp.telemetry_enabled = False
         load(dp)
         enable_flows(dp)
         run = StageRun(dp, family6, batches, payloads)
@@ -1927,6 +1974,896 @@ def phase_stages(dev, state4) -> dict:
         launches[fam] = dv.dense_verdict.launches
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the serving tier (lane, supervisor, verdict service)
+# ---------------------------------------------------------------------------
+
+# the daemon's supervision knobs (cilium_tpu/daemon/daemon.py:123-131 with
+# the defaults of cilium_tpu/utils/option.py:272-289): a 10 s watchdog, 3
+# consecutive transient faults, a 1 s reset, the oracle for new flows while
+# degraded, 2**17 pending records; no admission deadline
+SERVING_KNOBS = dict(watchdog_s=10.0, failure_threshold=3, reset_s=1.0,
+                     new_flow_policy="oracle", max_pending=1 << 17)
+SERVING_SUBMITTERS = 16
+SERVING_CHUNKS = 6            # chunks per submitter in the parity leg
+SERVING_MAX_CHUNK = 4096
+SERVING_OUTSTANDING = 2       # tickets a submitter keeps unresolved
+LATENCY_SIZES = (1, 16, 64, 256, 1024, 4096)
+LATENCY_ITERS = 150
+COALESCE_FRAMES = 40
+THROUGHPUT_CHUNK = 4096
+THROUGHPUT_ROUNDS = 12        # each submitter cycles its two chunks
+THROUGHPUT_PROFILED = 4       # rounds of the profiled window
+SERVICE_CLIENTS = 4
+SERVICE_FRAMES = 64
+SERVICE_BIG = 40_000          # records of a frame past the lane's max_batch
+SERVICE_WINDOW = 64           # payload bytes a record on the wire
+PAYLOAD_CLIENTS = 2
+PAYLOAD_FRAMES = 24
+PAYLOAD_L7_SHARE = 0.3        # rows aimed at the L7 redirects, half each
+# payload bytes a record on the wire in the payload leg: past the
+# engine's window, so rows longer than it are poisoned by the lane
+PAYLOAD_WIRE_WINDOW = L7_WINDOW + 32
+HANG_S = 1.5                  # the injected hang of one completion
+HANG_WATCHDOG_S = 0.5
+
+
+class RecordPool:
+    """Record chunks over a v4 serving state: half the destinations inside
+    the policy's prefixes on their identity's rule port (allowed), a
+    tenth at service VIPs (DNAT), the rest random; egress, SYN, random
+    source addresses, source ports from a counter, so no two records
+    share a tuple (chunks never meet each other's CT entries)."""
+
+    def __init__(self, state, seed: int = 41):
+        nets = parse_prefixes(state.prefixes)
+        self.net = np.array([n[0] for n in nets], np.int64)
+        self.host = np.array([(~n[1]) & 0xFFFFFFFF for n in nets], np.int64)
+        self.port = np.array([state.ident_port.get(n[3], 80) for n in nets],
+                             np.int64)
+        self.vip = np.array([s.vip for s in state.services], np.int64)
+        self.vport = np.array([s.port for s in state.services], np.int64)
+        self.n_ep = len(state.ep_identity)
+        self.rng = np.random.default_rng(seed)
+        self.sport = 0
+
+    def chunk(self, n: int) -> dict:
+        rng = self.rng
+        kind = rng.random(n)
+        daddr = rng.integers(0, 1 << 32, n, dtype=np.int64)
+        dport = rng.integers(1, 65536, n)
+        hit = kind < 0.5
+        k = rng.integers(0, self.net.shape[0], int(hit.sum()))
+        daddr[hit] = self.net[k] | (rng.integers(0, 1 << 32, k.shape[0])
+                                    & self.host[k])
+        dport[hit] = self.port[k]
+        svc = kind >= 0.9
+        j = rng.integers(0, self.vip.shape[0], int(svc.sum()))
+        daddr[svc] = self.vip[j]
+        dport[svc] = self.vport[j]
+        base = self.sport
+        self.sport += n
+        i32 = lambda a: np.asarray(a, np.int64).astype(  # noqa: E731
+            np.uint32).view(np.int32)
+        return {"endpoint": rng.integers(0, self.n_ep, n).astype(np.int32),
+                "saddr": i32(rng.integers(0, 1 << 32, n, dtype=np.int64)),
+                "daddr": i32(daddr),
+                "sport": ((base + np.arange(n)) % 64000 + 1024
+                          ).astype(np.int32),
+                "dport": dport.astype(np.int32),
+                "proto": np.full(n, 6, np.int32),
+                "direction": np.ones(n, np.int32),
+                "tcp_flags": np.full(n, 0x02, np.int32),
+                "is_fragment": np.zeros(n, np.int32),
+                "length": np.full(n, 256, np.int32)}
+
+
+def lane_status(lane, leg: str) -> dict:
+    """A supervised lane's status, which must show the card serving:
+    mode ok, no fault, no fail-static batch, no failed batch, no shed,
+    and no staging slot replaced (every batch was waited on) (for the
+    engine's lane, what ``Datapath.supervision_status`` reads)."""
+    s = lane.stats()
+    sup = s["supervisor"]
+    out = {"mode": sup["mode"], "breaker": sup["breaker"],
+           "faults": sup["faults"],
+           "fail_static_batches": sup["fail-static"]["batches"],
+           "static_batches": s["static-batches"], "errors": s["errors"],
+           "shed": s["shed"], "recoveries": sup["recoveries"],
+           "oracle_refreshes": sup["oracle"]["refreshes"],
+           "staging_replaced": lane.staging_replaced}
+    if sup["mode"] != "ok" or sup["faults"] or out["fail_static_batches"] \
+            or out["static_batches"] or out["errors"] or s["shed"] \
+            or lane.staging_replaced:
+        raise AssertionError(f"{leg}: the lane did not serve from the "
+                             f"card: {out}")
+    return out
+
+
+def submitters(lane, work, outstanding: int = SERVING_OUTSTANDING):
+    """``len(work)`` threads, thread ``t`` submitting ``work[t]`` (a list
+    of (soa, n)) in order with at most ``outstanding`` tickets
+    unresolved; returns each thread's results in order."""
+    results = [[] for _ in work]
+    errors = []
+
+    def run(t):
+        try:
+            pending = deque()
+            for soa, n in work[t]:
+                pending.append(lane.submit_records(soa, n))
+                while len(pending) >= outstanding:
+                    tk = pending.popleft()
+                    results[t].append(tk.result(timeout=300))
+                    if tk.error is not None:
+                        raise tk.error
+            while pending:
+                tk = pending.popleft()
+                results[t].append(tk.result(timeout=300))
+                if tk.error is not None:
+                    raise tk.error
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(t,))
+               for t in range(len(work))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a submitter did not finish")
+    if errors:
+        raise AssertionError(f"submitters failed: {errors[:3]}")
+    return results
+
+
+def alone_on_cpu(cpu, soa, n):
+    """The CPU twin's (verdict, identity) for one chunk alone, unpadded."""
+    packed = torch.as_tensor(np.stack([soa[f][:n] for f in PACKED_FIELDS]))
+    v, _e, i, _nat = cpu.process_packed(packed)
+    return v.numpy(), i.numpy()
+
+
+def lane_counts(lane) -> dict:
+    st = lane.stats()
+    return {"batches": st["batches"], "items": st["items"]}
+
+
+def batch_stats(before, after) -> dict:
+    b = after["batches"] - before["batches"]
+    items = after["items"] - before["items"]
+    return {"batches": b, "records": items,
+            "mean_batch": items / b if b else 0.0}
+
+
+def serving_parity(dp, cpu, lane, pool) -> dict:
+    t0 = time.perf_counter()
+    work = [[(c, len(c["sport"])) for c in
+             (pool.chunk(int(pool.rng.integers(1, SERVING_MAX_CHUNK + 1)))
+              for _ in range(SERVING_CHUNKS))]
+            for _ in range(SERVING_SUBMITTERS)]
+    before = lane_counts(lane)
+    results = submitters(lane, work)
+    served_s = time.perf_counter() - t0
+    mism = {"verdict": 0, "identity": 0}
+    verdicts = {"drop": 0, "allow": 0, "proxy": 0}
+    for chunks, outs in zip(work, results):
+        for (soa, n), (v, i) in zip(chunks, outs):
+            cv, ci = alone_on_cpu(cpu, soa, n)
+            mism["verdict"] += int((v != cv).sum()) + abs(len(v) - n)
+            mism["identity"] += int((i != ci).sum())
+            verdicts["drop"] += int((v < 0).sum())
+            verdicts["allow"] += int((v == 0).sum())
+            verdicts["proxy"] += int((v > 0).sum())
+    res = {"submitters": SERVING_SUBMITTERS, "chunks":
+           SERVING_SUBMITTERS * SERVING_CHUNKS,
+           **batch_stats(before, lane_counts(lane)),
+           "mismatches": mism, "verdicts": verdicts, "served_s": served_s,
+           "seconds": time.perf_counter() - t0,
+           "status": lane_status(lane, "serving-parity")}
+    emit("serving-parity", **res)
+    if any(mism.values()):
+        raise AssertionError(f"serving lane != CPU twin: {mism}")
+    return res
+
+
+def percentiles(seconds) -> dict:
+    us = np.asarray(seconds) * 1e6
+    return {"p50_us": float(np.percentile(us, 50)),
+            "p99_us": float(np.percentile(us, 99)),
+            "max_us": float(us.max()), "samples": len(us)}
+
+
+def stage_ms(family: str) -> dict:
+    """Mean host ms a batch of the lane's stages since the last reset."""
+    rep = stages.pipeline_report().get(family, {})
+    return {name: rep[name]["mean-us"] / 1e3 for name in
+            ("queue-wait", "pack", "dispatch", "complete") if name in rep}
+
+
+def fresh_view(sup) -> None:
+    """Wait for the refresh of ``sup``'s host view in flight to end, or
+    refresh it here when none is: none starts for the next
+    ``ORACLE_REFRESH_S`` (5 s), so a timed window shorter than that
+    holds none (a refresh decodes the whole CT under the GIL, 1-3 s at
+    this width)."""
+    if sup._refreshing.acquire(blocking=False):
+        try:
+            sup.oracle.refresh()
+        finally:
+            sup._refreshing.release()
+    else:
+        with sup._refreshing:
+            pass
+
+
+def refreshes_since(sup, before: int) -> int:
+    """Host-view refreshes finished since ``before``, plus one in
+    flight."""
+    return sup.oracle.refreshes - before + int(sup._refreshing.locked())
+
+
+def serving_latency(dp, lane, pool) -> list:
+    """``bench_suite.py``'s latency-tier protocol on the card: per size,
+    the sync round trip (``process_packed`` of a pinned batch copied to
+    the card, then a host read of its verdicts), then a lane of that
+    batch size (``max_batch = b``, as the bench's, under a supervisor
+    with the daemon's knobs) unloaded (submit, resolve) and its
+    streaming interval at depth 2; the same records every iteration, so
+    they are established after the first.  Then 16 submitters of
+    single-record frames through the engine's lane.  Each timed lane
+    window starts from a fresh host view, so no refresh falls in it (as
+    none falls in the sync windows); ``refreshes_in_windows`` counts any
+    that did."""
+    rows = []
+    dev = dp.device
+    knobs = {k: v for k, v in SERVING_KNOBS.items() if k != "max_pending"}
+    for b in LATENCY_SIZES:
+        sized = VerdictDispatcher(dp, max_batch=b, min_rows=min(b, 16),
+                                  lane=f"lat{b}",
+                                  supervisor=DeviceSupervisor(dp, **knobs))
+        recs = pool.chunk(b)
+        stage_t, stage_np = host_buffer((len(PACKED_FIELDS), b),
+                                        dev.type == "cuda")
+        for fi, f in enumerate(PACKED_FIELDS):
+            stage_np[fi] = recs[f]
+
+        def sync_step():
+            v = dp.process_packed(stage_t.to(dev, non_blocking=True))[0]
+            return v.cpu()
+
+        for _ in range(3):
+            sync_step()
+        sync = []
+        for _ in range(LATENCY_ITERS):
+            t1 = time.perf_counter()
+            sync_step()
+            sync.append(time.perf_counter() - t1)
+        try:
+            for _ in range(4):
+                sized.submit_records(recs, b).result(timeout=300)
+            sup = sized.supervisor
+            fresh_view(sup)
+            stages.reset()
+            before = sup.oracle.refreshes
+            unloaded = []
+            for _ in range(LATENCY_ITERS):
+                t1 = time.perf_counter()
+                sized.submit_records(recs, b).result(timeout=300)
+                unloaded.append(time.perf_counter() - t1)
+            host = stage_ms(sized.family)
+            in_windows = refreshes_since(sup, before)
+            fresh_view(sup)
+            stages.reset()
+            before = sup.oracle.refreshes
+            tickets = []
+            t0 = time.perf_counter()
+            for k in range(LATENCY_ITERS):
+                tickets.append(sized.submit_records(recs, b))
+                if k >= 2:
+                    tickets[k - 2].result(timeout=300)
+            for tk in tickets:
+                tk.result(timeout=300)
+            interval = (time.perf_counter() - t0) / LATENCY_ITERS
+            streaming_host = stage_ms(sized.family)
+            in_windows += refreshes_since(sup, before)
+            status = lane_status(sized, "serving-latency")
+            launched = sized.batches
+        finally:
+            sized.close()
+        row = {"b": b, "sync": percentiles(sync),
+               "serving": percentiles(unloaded),
+               "streaming_interval_us": interval * 1e6,
+               "batches": launched,
+               "stage_host_ms": host,
+               "streaming_stage_host_ms": streaming_host,
+               "refreshes_in_windows": in_windows,
+               "status": status}
+        emit("serving-latency", **row)
+        rows.append(row)
+    # coalescing: concurrent single-record submitters
+    frames = [[pool.chunk(1) for _ in range(COALESCE_FRAMES)]
+              for _ in range(SERVING_SUBMITTERS)]
+    lane.submit_records(pool.chunk(1), 1).result(timeout=300)
+    fresh_view(lane.supervisor)
+    refreshes0 = lane.supervisor.oracle.refreshes
+    per_frame, order, lock = [], [], threading.Lock()
+
+    def one(t):
+        for k, soa in enumerate(frames[t]):
+            t1 = time.perf_counter()
+            lane.submit_records(soa, 1).result(timeout=300)
+            with lock:
+                per_frame.append(time.perf_counter() - t1)
+                order.append(k)
+
+    before = lane_counts(lane)
+    threads = [threading.Thread(target=one, args=(t,))
+               for t in range(SERVING_SUBMITTERS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    counts = batch_stats(before, lane_counts(lane))
+    slowest = np.argsort(per_frame)[-5:]
+    row = {"submitters": SERVING_SUBMITTERS,
+           "frames": len(per_frame), **percentiles(per_frame),
+           # each slow frame's place in its submitter's sequence
+           "slowest_frame_index": [order[j] for j in slowest],
+           "records_per_launch": counts["mean_batch"],
+           "batches": counts["batches"],
+           "refreshes_in_windows": refreshes_since(lane.supervisor,
+                                                   refreshes0),
+           "status": lane_status(lane, "serving-coalesce")}
+    emit("serving-coalesce", **row)
+    rows.append(row)
+    return rows
+
+
+def device_busy_ms(fn) -> tuple:
+    """(fn's result, device busy ms, kernels, wall s) over one call of
+    ``fn`` under ``torch.profiler``'s CUDA activity; the wall clock runs
+    inside the profiled window, from the call until the card is done."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return out, busy, sum(e.count for e in kernels), wall
+
+
+def serving_throughput(dp, lane, pool) -> dict:
+    """16 submitters of 4,096-record chunks through the lane (coalesced
+    up to its max_batch of 2**15), each cycling two chunks
+    ``THROUGHPUT_ROUNDS`` times with two tickets outstanding: records/s
+    and the mean batch; then fewer rounds under the profiler for the
+    card's busy share: its busy ms over the wall ms of the same profiled
+    window (the profiler slows the host, so this share is lower than in
+    the unprofiled window)."""
+    mine = [[pool.chunk(THROUGHPUT_CHUNK) for _ in range(2)]
+            for _ in range(SERVING_SUBMITTERS)]
+    work = [[(c[r % 2], THROUGHPUT_CHUNK) for r in range(THROUGHPUT_ROUNDS)]
+            for c in mine]
+    submitters(lane, [w[:2] for w in work])   # first use of the chunks
+    shed0 = sum(lane.stats()["shed"].values())
+    before = lane_counts(lane)
+    t0 = time.perf_counter()
+    submitters(lane, work)
+    wall = time.perf_counter() - t0
+    counts = batch_stats(before, lane_counts(lane))
+    before_p = lane_counts(lane)
+    _, busy_ms, kernels, wall_p = device_busy_ms(
+        lambda: submitters(lane, [w[:THROUGHPUT_PROFILED] for w in work]))
+    counts_p = batch_stats(before_p, lane_counts(lane))
+    batches_p = max(1, counts_p["batches"])
+    res = {"submitters": SERVING_SUBMITTERS, "chunk": THROUGHPUT_CHUNK,
+           "max_batch": lane.max_batch, **counts, "seconds": wall,
+           "records_per_s": counts["records"] / wall,
+           "wall_ms_per_batch": wall * 1e3 / max(1, counts["batches"]),
+           "busy_share": busy_ms / (wall_p * 1e3),
+           "profiled": {"seconds": wall_p, **counts_p,
+                        "records_per_s": counts_p["records"] / wall_p,
+                        "wall_ms_per_batch": wall_p * 1e3 / batches_p,
+                        "busy_ms_per_batch": busy_ms / batches_p,
+                        "kernels_per_batch": kernels / batches_p},
+           "shed": sum(lane.stats()["shed"].values()) - shed0,
+           "status": lane_status(lane, "serving-throughput")}
+    emit("serving-throughput", **res)
+    return res
+
+
+def records_of(soa) -> np.ndarray:
+    """A record chunk as the wire's ``PKT_HEADER_DTYPE`` records."""
+    recs = np.zeros(len(soa["sport"]), PKT_HEADER_DTYPE)
+    for f in PKT_HEADER_DTYPE.names:
+        recs[f] = soa[f].view(np.uint32) if f in ("saddr", "daddr") \
+            else soa[f]
+    return recs
+
+
+def verdict_service_leg(dp, lane, pool) -> dict:
+    """4 clients of 64 frames each over loopback, a third of them with a
+    payload lane and one each larger than the lane's max_batch; then
+    the same records straight into the lane, in order: the answers must
+    be equal (each record's flow is established by then, and keeps the
+    verdict it got)."""
+    rng = np.random.default_rng(43)
+    plan = []
+    for c in range(SERVICE_CLIENTS):
+        frames = []
+        for k in range(SERVICE_FRAMES):
+            n = SERVICE_BIG if k == 5 else \
+                int(rng.integers(1, SERVING_MAX_CHUNK + 1))
+            soa = pool.chunk(n)
+            recs = records_of(soa)
+            pl = None
+            if k % 3 == 1:
+                strings = [None if rng.random() < 0.2 else
+                           f"GET\x00/api/{int(x)}\x00svc"
+                           for x in rng.integers(0, 1 << 20, n)]
+                pl = pack_wire_payloads(strings, SERVICE_WINDOW)
+            frames.append((recs, pl))
+        plan.append(frames)
+    svc = VerdictService(dp).start()
+    answers = [None] * SERVICE_CLIENTS
+    errors = []
+
+    def client(c):
+        cl = VerdictClient("127.0.0.1", svc.port)
+        try:
+            answers[c] = [cl.classify(r, payloads=p) for r, p in plan[c]]
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            cl.close()
+
+    before = lane_counts(lane)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(SERVICE_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = batch_stats(before, lane_counts(lane))
+        served = svc.frames_served
+    finally:
+        svc.shutdown()
+    if errors:
+        raise AssertionError(f"verdict-service clients failed: {errors}")
+    mism = {"verdict": 0, "identity": 0, "count": 0}
+    for c in range(SERVICE_CLIENTS):
+        for (recs, pl), (v, i) in zip(plan[c], answers[c]):
+            n = len(recs)
+            soa = {f: recs[f].astype(np.int64).astype(np.uint32).view(
+                np.int32) if f in ("saddr", "daddr") else
+                recs[f].astype(np.int32) for f in PKT_HEADER_DTYPE.names}
+            payload = None if pl is None else _decode_wire_payloads(
+                pl.tobytes(), n, SERVICE_WINDOW)
+            tk = lane.submit_records(soa, n, payload=payload)
+            dv, di = tk.result(timeout=300)
+            mism["count"] += int(len(v) != n)
+            mism["verdict"] += int((v != dv).sum())
+            mism["identity"] += int((i != di).sum())
+    res = {"clients": SERVICE_CLIENTS, "frames": served,
+           "records": sum(len(r) for fr in plan for r, _p in fr),
+           "payload_frames": sum(p is not None for fr in plan
+                                 for _r, p in fr),
+           "big_frames": sum(len(r) > lane.max_batch for fr in plan
+                             for r, _p in fr),
+           **counts, "seconds": wall, "mismatches": mism,
+           "status": lane_status(lane, "verdict-service")}
+    emit("verdict-service", **res)
+    if any(mism.values()) or served != SERVICE_CLIENTS * SERVICE_FRAMES:
+        raise AssertionError(f"verdict service != direct lane: {res}")
+    return res
+
+
+def l7_frame(pool, l7st, rng, n: int):
+    """``n`` records of ``pool`` with ``PAYLOAD_L7_SHARE`` of them aimed
+    at ``l7st``'s redirects (HTTP ingress :80 from its HTTP /16, DNS
+    egress :53 to its DNS /16) and one match string a row: the state's
+    requests and names, None (absent), and strings 1-32 bytes past the
+    engine's window; other rows carry a request, which no program
+    reads.  Returns (soa, strings)."""
+    soa = pool.chunk(n)
+    u = rng.random(n)
+    http = u < PAYLOAD_L7_SHARE / 2
+    dns = ~http & (u < PAYLOAD_L7_SHARE)
+    peer = rng.integers(0, 1 << 16, n)
+    as_i32 = lambda a: a.astype(np.uint32).view(np.int32)  # noqa: E731
+    soa["saddr"][http] = as_i32(l7st.http_net + peer[http])
+    soa["direction"][http] = 0
+    soa["dport"][http] = 80
+    soa["daddr"][dns] = as_i32(l7st.dns_net + peer[dns])
+    soa["dport"][dns] = 53
+    soa["proto"][dns] = 17
+    soa["tcp_flags"][dns] = 0
+    n_http = len(l7st.strings) - len(L7_DNS_NAMES) - 2
+    reqs, names = l7st.strings[:n_http], l7st.strings[n_http:-2]
+    strings = []
+    for j in range(n):
+        pick = names if dns[j] else reqs
+        s = pick[int(rng.integers(len(pick)))]
+        k = rng.random()
+        if (http[j] or dns[j]) and k < 0.1:
+            s = None
+        elif (http[j] or dns[j]) and k < 0.3:
+            s += "x" * (L7_WINDOW + int(rng.integers(1, 33)) - len(s))
+        strings.append(s)
+    return soa, strings
+
+
+def serving_payload(dp, cpu, lane, pool, state4) -> dict:
+    """The payload lane on the card: both engines take the policy of
+    ``l7_serving_state(state4)`` with the L7 fast verdict on (and
+    ``state4``'s again, L7 fast off, at the end), then 2 clients send 24
+    frames each of
+    1-4,096 records with a payload lane ``PAYLOAD_WIRE_WINDOW`` wide
+    through ``VerdictService``; the lane stages each payload into its
+    pinned [rows, W] slot and poisons the rows longer than the engine's
+    window W.  Every answer must equal the CPU twin's for its frame
+    alone, with the payload encoded at W (rows past it poisoned there)."""
+    t0 = time.perf_counter()
+    l7st = l7_serving_state(state4)
+    for eng in (dp, cpu):
+        eng.load_policy(l7st.v4.states, revision=2,
+                        ipcache_prefixes=l7st.v4.prefixes)
+        set_stages(eng, "l7fast", l7st)
+    width = dp.l7_fast_window()
+    rng = np.random.default_rng(44)
+    plan = [[l7_frame(pool, l7st, rng,
+                      int(rng.integers(1, SERVING_MAX_CHUNK + 1)))
+             for _ in range(PAYLOAD_FRAMES)]
+            for _ in range(PAYLOAD_CLIENTS)]
+    setup_s = time.perf_counter() - t0
+    svc = VerdictService(dp).start()
+    answers = [None] * PAYLOAD_CLIENTS
+    errors = []
+
+    def client(c):
+        cl = VerdictClient("127.0.0.1", svc.port)
+        try:
+            answers[c] = [cl.classify(
+                records_of(soa), payloads=pack_wire_payloads(
+                    strings, PAYLOAD_WIRE_WINDOW))
+                for soa, strings in plan[c]]
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            cl.close()
+
+    before = lane_counts(lane)
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PAYLOAD_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = batch_stats(before, lane_counts(lane))
+    finally:
+        svc.shutdown()
+    if errors:
+        raise AssertionError(f"serving-payload clients failed: {errors}")
+    mism = {"verdict": 0, "identity": 0, "count": 0}
+    aimed = {"allow": 0, "deny_l7": 0, "redirect": 0, "other_drop": 0}
+    past = past_redirected = 0
+    for c in range(PAYLOAD_CLIENTS):
+        for (soa, strings), (v, i) in zip(plan[c], answers[c]):
+            n = len(strings)
+            packed = torch.as_tensor(np.stack([soa[f][:n]
+                                               for f in PACKED_FIELDS]))
+            cv, _e, ci, _nat = cpu.process_packed(
+                packed, payload=torch.as_tensor(
+                    encode_payloads(strings, width)))
+            cv, ci = cv.numpy(), ci.numpy()
+            mism["count"] += int(len(v) != n)
+            mism["verdict"] += int((v != cv).sum())
+            mism["identity"] += int((i != ci).sum())
+            l7 = ((soa["dport"][:n] == 80) & (soa["direction"][:n] == 0)) | \
+                ((soa["dport"][:n] == 53) & (soa["proto"][:n] == 17))
+            aimed["allow"] += int((l7 & (v == 0)).sum())
+            aimed["deny_l7"] += int((l7 & (v == VERDICT_DROP_L7)).sum())
+            aimed["redirect"] += int((l7 & (v > 0)).sum())
+            aimed["other_drop"] += int((l7 & (v < 0) &
+                                        (v != VERDICT_DROP_L7)).sum())
+            long_row = np.array([s is not None and len(s.encode()) > width
+                                 for s in strings])
+            past += int((l7 & long_row).sum())
+            past_redirected += int((l7 & long_row & (v > 0)).sum())
+    for eng in (dp, cpu):
+        set_stages(eng, "off", l7st)
+        eng.load_policy(state4.states, revision=3,
+                        ipcache_prefixes=state4.prefixes)
+    res = {"clients": PAYLOAD_CLIENTS, "frames": PAYLOAD_CLIENTS *
+           PAYLOAD_FRAMES, "wire_window": PAYLOAD_WIRE_WINDOW,
+           "engine_window": width,
+           "records": sum(len(st) for fr in plan for _s, st in fr),
+           **counts, "seconds": wall, "setup_s": setup_s,
+           "l7_rows": aimed, "l7_rows_past_window": past,
+           "l7_rows_past_window_redirected": past_redirected,
+           "mismatches": mism,
+           "status": lane_status(lane, "serving-payload")}
+    emit("serving-payload", **res)
+    if any(mism.values()) or not aimed["allow"] or not aimed["deny_l7"] \
+            or not past:
+        raise AssertionError(f"serving-payload: {res}")
+    return res
+
+
+def wait_mode(sup, mode: str, submit, timeout: float = 60.0) -> float:
+    """Submit chunks until the supervisor reads ``mode``; seconds."""
+    t0 = time.perf_counter()
+    while sup.mode != mode:
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"the lane did not reach {mode}: "
+                                 f"{sup.stats()}")
+        time.sleep(min(0.05, max(0.0, sup.breaker.retry_in())))
+        submit()
+    return time.perf_counter() - t0
+
+
+def card_fail_static(dp, replay, soa, n: int) -> dict:
+    """The fail-static answer for ``n`` records of ``soa`` with every
+    input read from the card, none from the supervisor's host view: each
+    forward and reply tuple looked up in the card's own CT table, each
+    peer's identity in the card's ipcache, each row's new-flow verdict
+    replayed through the card's policy tensors (``replay``, the
+    engine's ``policy_replay``); the
+    precedence is ``host_fail_static_step``'s (a live forward entry
+    gives its recorded proxy port, a live reply entry 0, else the
+    policy verdict).  Also, for each row, whether its whole probe window
+    is live (a create finds no free slot) and whether its window holds
+    the entry of another row of ``soa`` (a create can lose its slot to
+    a new flow of the same batch: one winner a slot a batch)."""
+    dev = dp.device
+    col = {f: torch.as_tensor(np.ascontiguousarray(soa[f][:n])).to(dev)
+           for f in ("saddr", "daddr", "sport", "dport", "proto",
+                     "direction")}
+    sa, da, sp, dpt, pr, di = (col[f] for f in ("saddr", "daddr", "sport",
+                                                "dport", "proto",
+                                                "direction"))
+    with dp._lock:
+        ct, tables = dp.ct, dp._tables.datapath
+        now = dp._timestamp(None)
+        keys = (sa, da, conntrack._pack_k2(sp, dpt),
+                conntrack._pack_k3(pr, di))
+        fwd, slot = conntrack._lookup(ct.state, *keys, now, ct.slots,
+                                      ct.max_probe)
+        held = slot[fwd]
+        rev, _ = conntrack._lookup(
+            ct.state, da, sa, conntrack._pack_k2(dpt, sp),
+            conntrack._pack_k3(pr, 1 - di), now, ct.slots, ct.max_probe)
+        proxy = ct.state[conntrack.FIELDS.index("proxy_port")][slot.long()]
+        idx = conntrack._probe_idx(*keys, ct.slots, ct.max_probe).long()
+        window_full = ((ct.state[conntrack.FIELDS.index("k3")][idx] != 0) &
+                       (ct.state[conntrack.FIELDS.index("expires")][idx] >
+                        now)).all(dim=1)
+        mate = torch.isin(idx, held.long()).any(dim=1)
+        found, ident = lpm_lookup(
+            tables.lpm_masks, tables.lpm_key_a, tables.lpm_key_b,
+            tables.lpm_value, tables.lpm_plens, torch.where(di == 0, sa, da),
+            dp._statics["lpm_probe"])
+        ident = torch.where(found, ident, WORLD_IDENTITY)
+    fwd, rev, proxy, window_full, mate, ident = (
+        t.cpu().numpy() for t in (fwd, rev, proxy, window_full, mate,
+                                  ident))
+    policy = np.array([r["verdict"] for r in replay(
+        soa["endpoint"][:n], ident, soa["dport"][:n], soa["proto"][:n],
+        soa["direction"][:n])], np.int32)
+    return {"verdict": np.where(fwd, proxy, np.where(rev, 0, policy)),
+            "identity": ident, "established": fwd | rev,
+            "window_full": window_full, "window_holds_mate": mate}
+
+
+def serving_fault(dp, cpu, lane, pool) -> list:
+    """``failure_threshold`` transient launch faults, then one hung
+    completion under a 0.5 s watchdog: each must take the lane
+    fail-static, and after the fault clears the probe must rebuild the
+    tables and replay the gate's rows on the card before the lane reads
+    ok again; a fresh chunk then equals the CPU twin's answer.  While
+    fail-static, every row of a chunk the card has seen (its allowed
+    flows established) and of a fresh chunk must equal
+    ``card_fail_static`` (inputs read from the card, not from the
+    oracle), and the fresh chunk also ``host_fail_static_step`` over the
+    oracle's view (the lane answers from that oracle)."""
+    sup = lane.supervisor
+    inj = DeviceFaultInjector()
+    sup.install_fault_hook(inj)
+    replayed, recovering = [], []
+    replay, recover = dp.policy_replay, sup._recover
+
+    def counting_replay(*cols):
+        out = replay(*cols)
+        replayed.append((len(out), dp.device.type))
+        return out
+
+    def timed_recover():
+        t0 = time.perf_counter()
+        ok = recover()
+        recovering.append((time.perf_counter() - t0, ok))
+        return ok
+
+    dp.policy_replay = counting_replay
+    sup._recover = timed_recover
+
+    def submit(n=64, soa=None):
+        soa = soa if soa is not None else pool.chunk(n)
+        tk = lane.submit_records(soa, n)
+        v, i = tk.result(timeout=300)
+        if tk.error is not None:
+            raise AssertionError(f"fail-closed while supervised: {tk.error}")
+        return v, i
+
+    rows = []
+    try:
+        est = pool.chunk(2048)
+        v_est, _ = submit(2048, est)
+        with sup._refreshing:   # a view that holds est's CT entries
+            t0 = time.perf_counter()
+            sup.oracle.refresh()
+            refresh_s = time.perf_counter() - t0
+        card = card_fail_static(dp, replay, est, 2048)
+        # the allowed rows the card's CT does not hold on their own
+        # tuple, by cause: a DNAT'd flow's entry is on its backend's
+        # tuple (fail-static answers policy, not NAT); a create found
+        # its probe window full, or lost its slot to a flow of its batch
+        svc = set(zip(pool.vip.tolist(), pool.vport.tolist()))
+        dnat = np.array([(int(a), int(p)) in svc for a, p in zip(
+            est["daddr"].view(np.uint32), est["dport"])])
+        left = (v_est >= 0) & ~card["established"]
+        causes = {}
+        for cause, hit in (("dnat", dnat),
+                            ("probe_window_full", card["window_full"]),
+                            ("slot_taken_by_batch_mate",
+                             card["window_holds_mate"]),
+                            ("other", np.ones(2048, bool))):
+            causes[cause] = int((left & hit).sum())
+            left &= ~hit
+        rows_of = {"allowed": int((v_est >= 0).sum()),
+                   "established": int(card["established"].sum()),
+                   "allowed_not_established": causes,
+                   "ct_fill": dp.ct_entries()[0] / dp.ct.slots}
+        # an established row's entry holds what the card answered it
+        recorded_mism = int((card["verdict"][card["established"]] !=
+                             np.maximum(v_est, 0)[card["established"]]
+                             ).sum())
+        for kind in ("transient", "hung"):
+            replayed.clear()
+            recovering.clear()
+            rebuilds = dp.rebuilds
+            t0 = time.perf_counter()
+            if kind == "transient":
+                inj.fail_launch(times=SERVING_KNOBS["failure_threshold"])
+                for _ in range(SERVING_KNOBS["failure_threshold"]):
+                    submit(16)
+            else:
+                sup.watchdog_s = HANG_WATCHDOG_S
+                inj.hang_finalize(seconds=HANG_S)
+                submit(16)
+            to_static = time.perf_counter() - t0
+            mode = sup.mode
+            v_static, i_static = submit(2048, est)
+            est_mism = int((v_static != card["verdict"]).sum() +
+                           (i_static != card["identity"]).sum())
+            fresh = pool.chunk(2048)
+            v_new, i_new = submit(2048, fresh)
+            card_new = card_fail_static(dp, replay, fresh, 2048)
+            new_mism = int((v_new != card_new["verdict"]).sum() +
+                           (i_new != card_new["identity"]).sum())
+            with sup.oracle._mu:
+                want_v, want_i = host_fail_static_step(
+                    fresh, 2048, established=sup.oracle._established,
+                    identity_of=sup.oracle._identity_of,
+                    policy_verdict=sup.oracle._policy_verdict)
+            oracle_mism = int((v_new != want_v).sum() +
+                              (i_new != want_i).sum())
+            inj.heal()
+            if kind == "hung":
+                time.sleep(HANG_S)   # the abandoned worker's call ends
+            t1 = time.perf_counter()
+            recover_s = wait_mode(sup, "ok", lambda: submit(16))
+            after = pool.chunk(2048)
+            v_after, i_after = submit(2048, after)
+            cv, ci = alone_on_cpu(cpu, after, 2048)
+            row = {"kind": kind, "watchdog_s": sup.watchdog_s,
+                   "mode_after_fault": mode,
+                   "seconds_to_fail_static": to_static,
+                   "seen_chunk_mismatches": est_mism,
+                   "seen_chunk_rows": rows_of,
+                   "recorded_verdict_mismatches": recorded_mism,
+                   "new_flow_mismatches": new_mism,
+                   "new_flows_established": int(
+                       card_new["established"].sum()),
+                   "oracle_mismatches": oracle_mism,
+                   "seconds_to_recovery": recover_s,
+                   "recovered_at_s": time.perf_counter() - t1,
+                   "rebuilds": dp.rebuilds - rebuilds,
+                   "rebuild_and_gate_s": [t for t, _ok in recovering],
+                   "gate_passed": [ok for _t, ok in recovering],
+                   "replayed_rows": sum(n for n, _d in replayed),
+                   "replay_device": sorted({d for _n, d in replayed}),
+                   "after_recovery_mismatches": int((v_after != cv).sum() +
+                                                    (i_after != ci).sum()),
+                   "mode": sup.mode, "faults": dict(sup.faults),
+                   "recoveries": sup.recoveries,
+                   "fail_static": sup.stats()["fail-static"],
+                   "oracle": sup.oracle.stats(),
+                   "oracle_refresh_s": refresh_s}
+            emit("serving-fault", **row)
+            rows.append(row)
+            sup.watchdog_s = SERVING_KNOBS["watchdog_s"]
+            bad = mode != "degraded" or est_mism or new_mism or \
+                oracle_mism or recorded_mism or \
+                row["after_recovery_mismatches"] or sup.mode != "ok" or \
+                not replayed or row["rebuilds"] < 1 or \
+                row["replay_device"] != [dp.device.type]
+            if bad:
+                raise AssertionError(f"serving-fault {kind}: {row}")
+    finally:
+        sup._hook = None
+        sup.watchdog_s = SERVING_KNOBS["watchdog_s"]
+        dp.policy_replay = replay
+        sup._recover = recover
+    return rows
+
+
+def phase_serving(dev, state4) -> int:
+    """The serving phase; returns the dense kernel's launches during it
+    (the lane's step runs no hand-written kernel)."""
+    t_phase = time.perf_counter()
+    pair = []
+    for where in (dev, torch.device("cpu")):
+        dp = engine.Datapath(ct_slots=V4_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                             device=where)
+        state4.load(dp)
+        enable_flows(dp)
+        pair.append(dp)
+    dp, cpu = pair
+    cpu.telemetry_enabled = False
+    dp.configure_supervision(**SERVING_KNOBS)
+    lane = dp.serving()
+    pool = RecordPool(state4)
+    emit("serving-state", ct_slots=V4_CT_SLOTS, flows_on=True,
+         knobs=SERVING_KNOBS, lane_max_batch=lane.max_batch,
+         depth=lane.depth, setup_s=time.perf_counter() - t_phase)
+    dv.dense_verdict.launches = 0
+    try:
+        parity = serving_parity(dp, cpu, lane, pool)
+        latency = serving_latency(dp, lane, pool)
+        throughput = serving_throughput(dp, lane, pool)
+        service = verdict_service_leg(dp, lane, pool)
+        payload = serving_payload(dp, cpu, lane, pool, state4)
+        faults = serving_fault(dp, cpu, lane, pool)
+        launches = dv.dense_verdict.launches
+    finally:
+        lane.close()
+    by_b = {r["b"]: r for r in latency if "b" in r}
+    emit("serving", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": launches},
+         parity_mismatches=sum(parity["mismatches"].values()),
+         service_mismatches=sum(service["mismatches"].values()),
+         payload_mismatches=sum(payload["mismatches"].values()),
+         p99_us={b: {"sync": r["sync"]["p99_us"],
+                     "serving": r["serving"]["p99_us"]}
+                 for b, r in by_b.items()},
+         records_per_s=throughput["records_per_s"],
+         busy_share=throughput["busy_share"],
+         fail_static_s=[f["seconds_to_fail_static"] for f in faults],
+         recovery_s=[f["seconds_to_recovery"] for f in faults],
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return launches
 
 
 def main() -> int:
@@ -1979,6 +2916,7 @@ def main() -> int:
     config2_launches = phase_config2(dev)
     l7_launches = phase_l7(dev)
     stage_launches = phase_stages(dev, state4)
+    serving_launches = phase_serving(dev, state4)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -2012,6 +2950,7 @@ def main() -> int:
         "config2_path_launches": config2_launches,
         "l7_path_launches": l7_launches,
         "stage_path_launches": stage_launches,
+        "serving_path_launches": serving_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

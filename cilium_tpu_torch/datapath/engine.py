@@ -10,7 +10,10 @@ stages join both family steps when enabled: the L7 fast verdict over a
 [B, W] ``payload=`` lane (``enable_l7_fast``), inline threat scoring
 (``enable_threat``) and traffic analytics (``enable_analytics``); while
 a stage is off its tables and state are not built and the steps run as
-they did before it existed.  Swap-on-regenerate:
+they did before it existed.  ``serving()`` wraps ``process_packed`` in
+the shared micro-batching lane (``datapath/serving.py``) under a
+``DeviceSupervisor`` (``datapath/supervisor.py``); ``policy_replay``
+runs header batches through the live policy tensors.  Swap-on-regenerate:
 ``load_policy`` builds a new table generation while conntrack, counters
 and flows survive when the shapes allow (the analog of pinned BPF maps
 surviving an agent restart).  The steps run eagerly; nothing in them
@@ -20,9 +23,10 @@ still works on it.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,9 +39,13 @@ from ..device import DeviceLike, resolve_device
 from ..analytics.stage import (CTRL_COL, AnalyticsState, ctrl_row,
                                epoch_rows, make_analytics_state)
 from ..hubble.aggregation import FlowTable
+from ..observability.jitstats import jit_telemetry
+from ..observability.stages import record_stage
 from ..policy.mapstate import PolicyMapState
 from ..threat.stage import COL_WIN_TS, ThreatState, make_threat_state
+from ..utils.metrics import POLICY_VERDICTS
 from .conntrack import ConntrackTable
+from .events import tier_name
 from .icmp6 import echo_reply
 from .lb import CompiledLB6, LoadBalancer, Service6, compile_lb6
 from .pipeline import (DatapathTables, FullPacketBatch, FullPacketBatch6,
@@ -45,7 +53,9 @@ from .pipeline import (DatapathTables, FullPacketBatch, FullPacketBatch6,
                        full_datapath_step, full_datapath_step6,
                        full_datapath_step_packed, lpm6_tables)
 from .prefilter import PreFilter
-from .verdict import Counters, Provenance
+from .serving import VerdictDispatcher
+from .supervisor import DeviceSupervisor
+from .verdict import Counters, Provenance, make_packet_batch, verdict_explain
 
 
 class Datapath:
@@ -101,6 +111,34 @@ class Datapath:
         self._mgr_geometry = None  # (capacity, slots, max_probe, gen)
         self.provenance_enabled = False
         self.last_provenance: Optional[Provenance] = None
+        # policy_replay probes as deep as the step (set per generation);
+        # rule_decoder's host copy of the policy tensors, per generation
+        self._replay_probe = 1
+        self._prov_decode_cache = None
+        # host-of-record policy states (load_policy mode): what the
+        # fail-static oracle and the recovery gate answer from when no
+        # DeviceTableManager owns the tensors
+        self._host_states: Optional[List[PolicyMapState]] = None
+        # runtime self-telemetry (observability/): stage slices, first-
+        # call accounting and verdict-outcome counts, all taken after the
+        # step with the lock released; on_revision_served(revision) is
+        # called on the first dispatch at a new policy revision
+        self.telemetry_enabled = True
+        self.on_revision_served = None
+        self._served_revision = 0
+        # deferred verdict-outcome accounting has its own lock: a forced
+        # flush waits on the card, never while the dispatch lock is held.
+        # Entries are (verdict, event recorded after its step); a side
+        # stream reads finished verdicts without queueing behind the
+        # steps launched since
+        self._verdict_lock = threading.Lock()
+        self._pending_verdicts: List = []
+        self._read_stream = None
+        # the shared serving lane (created on first use) and its
+        # supervision knobs (configure_supervision)
+        self._serving: Optional[VerdictDispatcher] = None
+        self._serving_lane_name = "verdict"
+        self._supervision_cfg: Dict = {"enabled": True}
         # per-second device timestamp: steady-state batches reuse one
         # 0-d tensor instead of making a new one per batch
         self._ts_cache: Optional[Tuple[int, torch.Tensor]] = None
@@ -415,6 +453,8 @@ class Datapath:
                     ) -> None:
         with self._lock:
             self._table_mgr = None
+            # slot i serves map_states[i]: the fail-static host-of-record
+            self._host_states = list(map_states)
             self.compiled_policy = compile_endpoints(map_states,
                                                      revision=revision)
             if ipcache_prefixes is not None or \
@@ -458,6 +498,8 @@ class Datapath:
                 return True
             dirty = self._table_mgr.drain_dirty()
             if dirty:
+                # rows are written in place: rule_decoder's copy is stale
+                self._prov_decode_cache = None
                 rows = torch.as_tensor(np.fromiter(dirty, np.int64,
                                                    count=len(dirty)),
                                        device=self.device)
@@ -660,6 +702,8 @@ class Datapath:
             flow_kwargs = dict(flow_slots=self.flows.slots,
                                flow_probe=self.flows.max_probe,
                                flow_claim_budget=self.flows.claim_budget)
+        self._replay_probe = policy_probe
+        self._prov_decode_cache = None
         self._statics = dict(
             policy_probe=policy_probe,
             lpm_probe=max(1, self.compiled_ipcache.max_probe),
@@ -805,22 +849,18 @@ class Datapath:
         payload lane on this engine's device
         (``l7/fast.encode_payloads``), read by the fast-verdict stage
         when it is on and ignored otherwise."""
-        ts = self._timestamp(now)
-        with self._lock:
-            return self._dispatch_locked(full_datapath_step, False, pkt,
-                                         ts, payload,
-                                         int(pkt.endpoint.shape[0]))
+        return self._serve("engine-v4", "datapath.process",
+                           full_datapath_step, False, pkt, now, payload,
+                           int(pkt.endpoint.shape[0]))
 
     def process6(self, pkt: FullPacketBatch6, now: Optional[int] = None,
                  payload: Optional[torch.Tensor] = None):
         """Classify a v6 batch (bpf_lxc.c:745 ipv6_policy).  Returns
         (verdict, event, identity, nat6), device tensors; ``payload`` as
         for ``process``."""
-        ts = self._timestamp(now)
-        with self._lock:
-            return self._dispatch_locked(full_datapath_step6, True, pkt,
-                                         ts, payload,
-                                         int(pkt.sport.shape[0]))
+        return self._serve("engine-v6", "datapath.process6",
+                           full_datapath_step6, True, pkt, now, payload,
+                           int(pkt.sport.shape[0]))
 
     def process_packed(self, packed: torch.Tensor,
                        now: Optional[int] = None,
@@ -829,11 +869,262 @@ class Datapath:
         this engine's device (``pipeline.PACKED_FIELDS`` order): the
         serving path's entry, one host-to-device copy per batch.  Same
         outputs as ``process``; ``payload`` rides beside the matrix."""
+        return self._serve("engine-v4", "datapath.process",
+                           full_datapath_step_packed, False, packed, now,
+                           payload, int(packed.shape[1]))
+
+    def _serve(self, family: str, entry: str, step, family6: bool, batch,
+               now: Optional[int], payload, rows: int):
+        """One dispatch under the lock, then (lock released) its
+        telemetry and the revision-served hook."""
         ts = self._timestamp(now)
+        telem = self.telemetry_enabled
+        t0 = time.perf_counter() if telem else 0.0
         with self._lock:
-            return self._dispatch_locked(full_datapath_step_packed,
-                                         False, packed, ts, payload,
-                                         int(packed.shape[1]))
+            t_lock = time.perf_counter() if telem else 0.0
+            out = self._dispatch_locked(step, family6, batch, ts, payload,
+                                        rows)
+            generation = self.rebuilds
+            served = self._revision_newly_served_locked()
+        if telem:
+            self._account_dispatch(family, entry, generation, rows, t0,
+                                   t_lock, out[0])
+        if served:
+            self._notify_revision_served(served)
+        return out
+
+    # -- the serving lane (datapath/serving.py, datapath/supervisor.py) ---
+
+    def configure_supervision(self, enabled: bool = True,
+                              **knobs) -> None:
+        """Set the serving lane's supervision config before the first
+        ``serving()``.  Knobs: watchdog_s, failure_threshold, reset_s,
+        new_flow_policy, recovery_gate (``DeviceSupervisor`` arguments)
+        plus max_pending and default_deadline (admission control).  ``enabled=False`` gives
+        the lane without a supervisor."""
+        with self._lock:
+            if self._serving is not None:
+                raise RuntimeError(
+                    "serving lane already created; configure "
+                    "supervision before first serving() use")
+            self._supervision_cfg = {"enabled": enabled, **knobs}
+
+    def serving(self) -> VerdictDispatcher:
+        """The engine's shared continuous micro-batching lane (created on
+        first use): every caller submits record chunks here, so
+        concurrent callers coalesce into one device launch.  Unless
+        supervision is disabled its launches run under a
+        ``DeviceSupervisor``."""
+        with self._lock:
+            if self._serving is None:
+                cfg = dict(self._supervision_cfg)
+                admission = {
+                    "max_pending": cfg.pop("max_pending", None),
+                    "default_deadline": cfg.pop("default_deadline",
+                                                None)}
+                supervisor = DeviceSupervisor(self, **cfg) \
+                    if cfg.pop("enabled", True) else None
+                self._serving = VerdictDispatcher(
+                    self, supervisor=supervisor,
+                    lane=self._serving_lane_name, **admission)
+            return self._serving
+
+    def supervision_status(self) -> Dict:
+        """Serving mode (ok/degraded/recovering), breaker state and the
+        lane's shed / fail-static accounting.  Never creates the lane."""
+        with self._lock:
+            serving = self._serving
+        if serving is None:
+            return {"mode": "ok", "serving": None,
+                    "supervised": self._supervision_cfg.get("enabled",
+                                                            True)}
+        sup = serving.supervisor
+        return {"mode": sup.mode if sup is not None else "ok",
+                "supervised": sup is not None,
+                "serving": serving.stats()}
+
+    def host_policy_states(self) -> Dict[int, PolicyMapState]:
+        """{table slot: host-of-record PolicyMapState}: what the
+        fail-static oracle enforces and the recovery gate replays
+        against; from the DeviceTableManager in incremental mode, from
+        the states ``load_policy`` compiled otherwise."""
+        with self._lock:
+            mgr = self._table_mgr
+            states = self._host_states
+        if mgr is not None:
+            return mgr.states_by_slot()
+        if states is None:
+            return {}
+        return {slot: st for slot, st in enumerate(states)}
+
+    # -- self-telemetry (observability/) ----------------------------------
+
+    def _account_dispatch(self, family: str, entry: str, generation: int,
+                          batch: int, t0: float, t_lock: float,
+                          verdict: torch.Tensor) -> None:
+        """Stage slices, first-call classification and deferred verdict
+        accounting of one dispatch, after the lock is released."""
+        t_done = time.perf_counter()
+        record_stage(family, "lock-wait", t_lock - t0)
+        record_stage(family, "dispatch", t_done - t_lock)
+        jit_telemetry.record(entry, generation, int(batch),
+                             t_done - t_lock)
+        done = None
+        if verdict.is_cuda:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(verdict.device))
+        with self._verdict_lock:
+            self._pending_verdicts.append((verdict, done))
+            self._flush_verdict_counts(
+                force=len(self._pending_verdicts) > 8)
+
+    def _verdict_read_stream(self):
+        """Context of the side stream verdict counts are read on (no
+        stream on the CPU)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        if self._read_stream is None:
+            self._read_stream = torch.cuda.Stream(self.device)
+        return torch.cuda.stream(self._read_stream)
+
+    def _flush_verdict_counts(self, force: bool = False) -> None:
+        """Count verdict outcomes of finished batches (verdict lock
+        held).  A batch is finished when its event has completed (on
+        the CPU at once); the rest wait for a later call, or, once more
+        than 8 are pending, are read anyway.  The read runs on a side
+        stream made to wait on the batch's event, so it never queues
+        behind the steps launched after it."""
+        remaining = []
+        for arr, done in self._pending_verdicts:
+            try:
+                ready = force or done is None or done.query()
+            except Exception:  # noqa: BLE001 — a context lost since
+                continue
+            if not ready:
+                remaining.append((arr, done))
+                continue
+            try:
+                with self._verdict_read_stream():
+                    if done is not None:
+                        torch.cuda.current_stream().wait_event(done)
+                    v = arr.cpu().numpy()  # sync-ok: a finished (event-gated) batch, or a bounded force-flush, read on a side stream outside the device lock
+            except Exception:  # noqa: BLE001 — a context lost since
+                continue
+            denied = int((v < 0).sum())
+            redirected = int((v > 0).sum())
+            allowed = v.shape[0] - denied - redirected
+            for outcome, n in (("allowed", allowed), ("denied", denied),
+                               ("redirected", redirected)):
+                if n:
+                    POLICY_VERDICTS.inc(n, labels={"outcome": outcome})
+        self._pending_verdicts = remaining
+
+    def flush_telemetry(self) -> None:
+        """Drain the deferred verdict accounting (the metrics-scrape
+        path); takes only the verdict lock."""
+        with self._verdict_lock:
+            self._flush_verdict_counts(force=True)
+
+    def _revision_newly_served_locked(self) -> int:
+        """First dispatch at a new policy revision (lock held): the
+        revision to report, or 0."""
+        if self.on_revision_served is None or \
+                self.revision <= self._served_revision:
+            return 0
+        self._served_revision = self.revision
+        return self.revision
+
+    def _notify_revision_served(self, revision: int) -> None:
+        try:
+            self.on_revision_served(revision)
+        except Exception:  # noqa: BLE001 — telemetry must never
+            pass           # poison the verdict path
+
+    # -- policy replay ------------------------------------------------------
+
+    def rule_decoder(self):
+        """Host decoder of provenance match slots: a closure mapping a
+        flat [E*S] slot to the compiled PolicyKey words at that slot of
+        the live policy tensors (None for -1, an empty slot or out of
+        range).  The host copy is cached per table generation."""
+        with self._lock:
+            if self._tables is None:
+                return lambda slot: None
+            dp = self._tables.datapath
+            cache = self._prov_decode_cache
+        if cache is None or cache[0] is not dp.key_id:
+            # read outside the lock: the copy waits for the queued steps
+            arrays = tuple(t.reshape(-1).cpu().numpy()
+                           for t in (dp.key_id, dp.key_meta, dp.value))
+            cache = (dp.key_id, arrays + (int(dp.key_id.shape[-1]),))
+            with self._lock:
+                self._prov_decode_cache = cache
+        flat_id, flat_meta, flat_value, slots = cache[1]
+
+        def decode(slot) -> Optional[Dict]:
+            slot = int(slot)
+            if slot < 0 or slot >= flat_meta.shape[0]:
+                return None
+            meta = int(flat_meta[slot])
+            if meta == 0:
+                return None  # slot emptied since the batch ran
+            return {"endpoint-slot": slot // slots,
+                    "slot": slot % slots,
+                    "identity": int(np.uint32(flat_id[slot])),
+                    "dport": (meta >> 16) & 0xFFFF,
+                    "proto": (meta >> 8) & 0xFF,
+                    "direction": (meta >> 1) & 1,
+                    "proxy-port": int(flat_value[slot])}
+        return decode
+
+    def policy_replay(self, endpoints, identities, dports, protos,
+                      directions) -> List[Dict]:
+        """Run a synthesized header batch through the live policy tensors
+        (``policy trace --replay``, the recovery gate's device side).
+        Pure read: no counters, no CT, no flow table; ``verdict_explain``
+        shares the step's lookups, so the verdicts are the ones
+        ``process()`` would give a new flow.
+
+        Arguments are equal-length sequences of endpoint table slots,
+        identities, dports, protos and directions.  Returns one dict per
+        row: the final verdict/tier/slot, the decoded matched key and
+        each stage's outcome."""
+        with self._lock:
+            if self._tables is None:
+                raise RuntimeError("no policy loaded")
+            dp = self._tables.datapath
+            key_id, key_meta, value = dp.key_id, dp.key_meta, dp.value
+            probe = self._replay_probe
+        pkt = make_packet_batch(endpoints, identities, dports, protos,
+                                directions, device=self.device)
+        res = verdict_explain(key_id, key_meta, value, pkt,
+                              max_probe=probe)
+        host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else
+                    {f: t.cpu().numpy() for f, t in v.items()})
+                for k, v in res.items()}
+        decode = self.rule_decoder()
+        eps, ids, dps, prs, dirs = (np.asarray(a) for a in (
+            endpoints, identities, dports, protos, directions))
+        out: List[Dict] = []
+        for i in range(eps.shape[0]):
+            stages = {}
+            for name in ("exact", "l3", "l4_wildcard"):
+                st = host[name]
+                found = bool(st["found"][i])
+                stages[name] = {
+                    "found": found, "value": int(st["value"][i]),
+                    "key": decode(st["slot"][i]) if found else None}
+            slot = int(host["slot"][i])
+            tier = int(host["tier"][i])
+            out.append({
+                "endpoint-slot": int(eps[i]), "identity": int(ids[i]),
+                "dport": int(dps[i]), "proto": int(prs[i]),
+                "direction": int(dirs[i]),
+                "verdict": int(host["verdict"][i]), "tier": tier,
+                "tier-name": tier_name(tier), "slot": slot,
+                "matched": decode(slot) if slot >= 0 else None,
+                "stages": stages})
+        return out
 
     # -- conntrack surface ------------------------------------------------
 

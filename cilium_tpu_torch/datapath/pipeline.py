@@ -251,6 +251,61 @@ PACKED_FIELDS = ("endpoint", "saddr", "daddr", "sport", "dport",
 PACKED_INDEX = {f: i for i, f in enumerate(PACKED_FIELDS)}
 
 
+def host_fail_static_step(soa, n: int, *, established, identity_of,
+                          policy_verdict):
+    """Host twin of ``full_datapath_step``'s verdict precedence (numpy;
+    a copy of ``cilium_tpu/datapath/pipeline.py``'s): what the dataplane
+    supervisor (``datapath/supervisor.py``) answers with while the device
+    lane is degraded (daemon/state.go: the kernel keeps forwarding on
+    last-known-good state while the agent is down).
+
+    Precedence mirrors step 7 of the compiled program: an established
+    flow follows its CT entry (its recorded proxy port; 0 == allow),
+    everything else takes the (degraded-mode) policy verdict for a new
+    flow.  The LB/prefilter/overlay stages are deliberately NOT served
+    degraded — fail-static answers policy, not NAT (documented
+    limitation; the reference's agent-down window likewise freezes LB
+    backend churn).
+
+    ``soa`` is the PacketRing SoA dict of [>=n] int32 arrays
+    (PACKED_FIELDS keys).  Callbacks:
+
+    - ``established(saddr_u32, daddr_u32, sport, dport, proto,
+      direction) -> Optional[int]``: the flow's recorded proxy port
+      when its CT entry (forward or reply tuple) is live, else None;
+    - ``identity_of(addr_u32) -> int``: host-ipcache identity of the
+      peer address (WORLD when unknown);
+    - ``policy_verdict(endpoint_slot, identity, dport, proto,
+      direction) -> int``: the new-flow decision (the compiler oracle,
+      a blanket deny, or a blanket allow — the configured degraded
+      policy).
+
+    Returns (verdict [n], identity [n]) int32 arrays.
+    """
+    verdicts = np.empty(n, np.int32)
+    idents = np.empty(n, np.int32)
+    ep = soa["endpoint"]
+    sa = np.ascontiguousarray(soa["saddr"][:n]).view(np.uint32)
+    da = np.ascontiguousarray(soa["daddr"][:n]).view(np.uint32)
+    sp, dp = soa["sport"], soa["dport"]
+    pr, di = soa["proto"], soa["direction"]
+    for j in range(n):
+        direction = int(di[j])
+        # peer identity: src on ingress, dst on egress (bpf_lxc.c:205)
+        peer = int(sa[j]) if direction == 0 else int(da[j])
+        ident = int(identity_of(peer))
+        idents[j] = ident
+        ct = established(int(sa[j]), int(da[j]), int(sp[j]),
+                         int(dp[j]), int(pr[j]), direction)
+        if ct is not None:
+            verdicts[j] = ct  # the flow keeps its verdict (0 = allow)
+            continue
+        verdicts[j] = int(policy_verdict(int(ep[j]), ident,
+                                         int(dp[j]), int(pr[j]),
+                                         direction))
+    return verdicts, idents
+
+
 def full_datapath_step_packed(tables: FullTables, ct: torch.Tensor,
                               counters: Counters, packed: torch.Tensor,
                               now: torch.Tensor,

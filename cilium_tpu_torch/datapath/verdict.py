@@ -17,7 +17,7 @@ eagerly and adds into the counters in place, where JAX rebinds them.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,6 +135,32 @@ def verdict_step(key_id: torch.Tensor, key_meta: torch.Tensor,
         prov = _policy_provenance(pkt, f1, v1, s1, f2, s2, f3, v3, s3)
         return verdict, counters, prov.match_slot, prov.tier
     return verdict, counters
+
+
+def verdict_explain(key_id: torch.Tensor, key_meta: torch.Tensor,
+                    value: torch.Tensor, pkt: PacketBatch,
+                    max_probe: int) -> Dict:
+    """Replay-grade breakdown: every stage's outcome plus the final
+    verdict/tier/slot, over the same ``_stage_lookups`` the hot path
+    runs (bit-exact by construction).  No counter writes; the entry of
+    ``engine.Datapath.policy_replay``."""
+    frag, (f1, v1, s1), (f2, v2, s2), (f3, v3, s3) = _stage_lookups(
+        key_id, key_meta, value, pkt, max_probe)
+    i32 = lambda x: torch.full((), x, dtype=torch.int32,  # noqa: E731
+                               device=v1.device)
+    verdict = torch.where(
+        f1, v1,
+        torch.where(f2, i32(VERDICT_ALLOW),
+                    torch.where(f3, v3,
+                                torch.where(frag, i32(VERDICT_DROP_FRAG),
+                                            i32(VERDICT_DROP)))))
+    prov = _policy_provenance(pkt, f1, v1, s1, f2, s2, f3, v3, s3)
+    return {
+        "verdict": verdict, "tier": prov.tier, "slot": prov.match_slot,
+        "exact": {"found": f1, "value": v1, "slot": s1},
+        "l3": {"found": f2, "value": v2, "slot": s2},
+        "l4_wildcard": {"found": f3, "value": v3, "slot": s3},
+    }
 
 
 class VerdictEngine:

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import shutil
 import subprocess
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -27,6 +28,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device available; pass device='cpu' to run the "
             "plain PyTorch versions on the host")
     return dev
+
+
+def host_buffer(shape, pinned: bool) -> Tuple[torch.Tensor, np.ndarray]:
+    """An int32 host tensor, page-locked when ``pinned`` (so copies
+    between it and a card can be queued without the host waiting), and
+    a numpy view of the same memory for the host to fill or read."""
+    t = torch.empty(shape, dtype=torch.int32, pin_memory=pinned)
+    return t, t.numpy()
 
 
 def nvidia_smi(fields: str) -> Optional[str]:

@@ -224,6 +224,14 @@ class DeviceTableManager:
             return (self._h_key_id.copy(), self._h_key_meta.copy(),
                     self._h_value.copy())
 
+    def states_by_slot(self) -> Dict[int, PolicyMapState]:
+        """{table row slot: PolicyMapState copy}: the host-of-record the
+        fail-static oracle (``datapath/supervisor.py``) enforces while the
+        device lane is degraded, and the recovery gate replays."""
+        with self._lock:
+            return {slot: PolicyMapState(self._state_of[ep_id])
+                    for ep_id, slot in self._slot_of.items()}
+
     def stats(self) -> Dict:
         with self._lock:
             return {"capacity": self.capacity, "slots": self.slots,

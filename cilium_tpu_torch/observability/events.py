@@ -1,0 +1,170 @@
+"""The incident flight recorder: a bounded ring of structured
+state-transition events.
+
+Copy of ``cilium_tpu/observability/events.py`` with the event types of
+the serving tier (supervisor mode flips, breaker trips, rebuilds,
+recoveries and overload watermark crossings).  Every transition lands
+as one event stamped with a monotonic sequence number, wall time and
+the owning shard, so an incident replays in order.  ``record()`` is a
+lock, a list append and one counter increment; emitters sit on
+transitions, never per batch.  Every event type is declared in
+``EVENT_TYPES``; recording an undeclared type raises.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from ..utils.metrics import registry
+
+FLIGHT_RECORDER_EVENTS = registry.counter(
+    "flight_recorder_events_total",
+    "State-transition events recorded by the incident flight "
+    "recorder, by event type")
+FLIGHT_RECORDER_DROPPED = registry.counter(
+    "flight_recorder_dropped_total",
+    "Flight-recorder events evicted from the bounded ring before "
+    "being read through a cursor, by evicted event type (a noisy "
+    "emitter shows up as ITS type overrunning the ring, not as an "
+    "anonymous aggregate)")
+
+# ---------------------------------------------------------------------------
+# Event type registry.  Each type is one degraded-condition transition;
+# recording a type not declared here raises.
+# ---------------------------------------------------------------------------
+
+EVENT_DATAPLANE_TRIP = "dataplane-breaker-trip"
+EVENT_DATAPLANE_DEGRADED = "dataplane-degraded"
+EVENT_DATAPLANE_FAIL_STATIC = "dataplane-fail-static"
+EVENT_DATAPLANE_REBUILD = "dataplane-rebuild"
+EVENT_DATAPLANE_RECOVERED = "dataplane-recovered"
+EVENT_SERVING_OVERLOAD = "serving-overload"
+
+EVENT_TYPES: Dict[str, str] = {
+    EVENT_DATAPLANE_TRIP:
+        "a device-lane fault was absorbed by a supervisor (attrs: "
+        "stage, kind; fatal kinds trip the breaker immediately)",
+    EVENT_DATAPLANE_DEGRADED:
+        "a serving lane's supervisor mode flipped to degraded — its "
+        "endpoints now serve FAIL-STATIC from the host oracle",
+    EVENT_DATAPLANE_FAIL_STATIC:
+        "first fail-static batch of a degradation window (attrs: "
+        "records served from the host oracle so far)",
+    EVENT_DATAPLANE_REBUILD:
+        "a breaker-gated recovery attempt: device-table rebuild from "
+        "the host-of-record + drift-audit gate (attrs: result)",
+    EVENT_DATAPLANE_RECOVERED:
+        "a serving lane's supervisor closed its breaker after a "
+        "passing recovery gate — back on device",
+    EVENT_SERVING_OVERLOAD:
+        "a serving lane crossed its admission watermark pair (attrs: "
+        "state on/off, pending weight)",
+}
+
+
+@dataclass(frozen=True)
+class FlightEvent:
+    """One recorded state transition."""
+
+    seq: int                  # recorder-assigned monotonic cursor
+    timestamp: float          # wall time (operator-facing)
+    monotonic: float          # monotonic stamp (ordering within a run)
+    type: str                 # EVENT_TYPES key
+    detail: str = ""
+    shard: Optional[int] = None
+    attrs: Dict = field(default_factory=dict)
+
+    def to_dict(self) -> Dict:
+        return {"seq": self.seq, "timestamp": self.timestamp,
+                "monotonic": self.monotonic, "type": self.type,
+                "detail": self.detail, "shard": self.shard,
+                "attrs": dict(self.attrs)}
+
+
+class FlightRecorder:
+    """Bounded, process-global transition-event ring (the incident
+    flight recorder).  Thread-safe; eviction is oldest-first and
+    accounted so a cursor-based reader can tell a quiet agent from an
+    overrun ring."""
+
+    def __init__(self, capacity: int = 2048):
+        self.capacity = capacity
+        self._mu = threading.Lock()
+        self._ring: List[FlightEvent] = []
+        self._next_seq = 1
+        self.evicted = 0
+        self.evicted_by_type: Dict[str, int] = {}
+
+    def record(self, event_type: str, detail: str = "",
+               shard: Optional[int] = None,
+               **attrs) -> FlightEvent:
+        """Ring one transition event.  ``event_type`` must be declared
+        in EVENT_TYPES — an undeclared type is a programming error, not
+        an event."""
+        if event_type not in EVENT_TYPES:
+            raise ValueError(f"undeclared flight-recorder event type "
+                             f"{event_type!r} — add it to EVENT_TYPES")
+        with self._mu:
+            ev = FlightEvent(
+                seq=self._next_seq, timestamp=time.time(),
+                monotonic=time.monotonic(), type=event_type,
+                detail=detail, shard=shard,
+                attrs=dict(attrs))
+            self._next_seq += 1
+            self._ring.append(ev)
+            if len(self._ring) > self.capacity:
+                drop = len(self._ring) - self.capacity
+                # account the evicted slice by type BEFORE truncating:
+                # the dropped series answers "whose events did the
+                # overrun cost us", not just "how many"
+                for dropped in self._ring[:drop]:
+                    self.evicted_by_type[dropped.type] = \
+                        self.evicted_by_type.get(dropped.type, 0) + 1
+                    FLIGHT_RECORDER_DROPPED.inc(
+                        labels={"type": dropped.type})
+                self._ring = self._ring[drop:]
+                self.evicted += drop
+        FLIGHT_RECORDER_EVENTS.inc(labels={"type": event_type})
+        return ev
+
+    @property
+    def last_seq(self) -> int:
+        with self._mu:
+            return self._next_seq - 1
+
+    def events(self, since: int = 0, limit: int = 200,
+               event_type: Optional[str] = None,
+               shard: Optional[int] = None) -> List[FlightEvent]:
+        """Events after the ``since`` cursor, oldest first (forward
+        paging, like the monitor/flow rings), optionally filtered by
+        type and shard."""
+        with self._mu:
+            ring = list(self._ring)
+        out = [e for e in ring if e.seq > since
+               and (event_type is None or e.type == event_type)
+               and (shard is None or e.shard == shard)]
+        return out[:limit] if limit else out
+
+    def stats(self) -> Dict:
+        with self._mu:
+            ringed = len(self._ring)
+            by_type: Dict[str, int] = {}
+            for e in self._ring:
+                by_type[e.type] = by_type.get(e.type, 0) + 1
+            return {"capacity": self.capacity, "ringed": ringed,
+                    "seq": self._next_seq - 1, "evicted": self.evicted,
+                    "by-type": by_type,
+                    "evicted-by-type": dict(self.evicted_by_type)}
+
+    def reset(self) -> None:
+        """Drop all buffered events (test isolation; cursors keep
+        advancing so ``since`` semantics survive a reset)."""
+        with self._mu:
+            self._ring = []
+
+
+# the process-global recorder every emitter writes to (like ``tracer``)
+recorder = FlightRecorder()

@@ -503,6 +503,9 @@ class _ServingRun:
         self.device = resolve_device(device)
         self.dp = Datapath(ct_slots=ct_slots, ct_probe=ct_probe,
                            device=self.device)
+        # the runs time the step alone, as the reference's benches do:
+        # telemetry's verdict-count reads would add host reads to it
+        self.dp.telemetry_enabled = False
         self.batch = batch
         self.stream: Iterator[np.ndarray] = iter(())
         self.t = 0
