@@ -142,17 +142,42 @@ script exits non-zero:
    policy replay, and once healed the probe must rebuild the tables and
    replay the recovery gate's rows on the card before the lane reads ok
    and equals the CPU twin again.
-11. the kernels line (the dense kernel's launches on the config-2, L7,
-   stage and serving paths, 0, beside those of v4 and v6), the card's
-   name and power limit from nvidia-smi, and a last line ``{"ok": true,
-   "device": {...}}``.
+11. rules to verdicts (``phase_policy``): ``workloads.policy_state``'s
+   1,000 rules (L3, L4 with and without ``fromEndpoints``, HTTP on
+   targeted rules, egress L3 / L4, ``toCIDR`` / ``fromCIDR``, a few
+   ``fromRequires``) over 16 local endpoints, 24 peers and 24 prefixes,
+   imported from their JSON text into ``workloads.PolicyRun`` (labels,
+   identities, repository, endpoints and their build queue, ipcache,
+   proxy redirects, ``DeviceTableManager``, ``Datapath``) on the card.
+   ``policy-build``: import and build seconds, regeneration seconds per
+   endpoint, entries per endpoint, sync + refresh ms, every endpoint
+   ready at the repository's revision.  ``policy-parity``: 2**20 new
+   connections through ``process_packed``, every output and buffer
+   against a CPU twin built from the same JSON in a worker process
+   (its proxy ports renamed to the card's through the redirect ids),
+   every identity against the ipcache's own longest match, a 4,096-row
+   sample against ``allows_ingress`` / ``allows_egress`` (run in worker
+   processes) with redirects against the ``ProxyManager``'s ports, and
+   the hash step and the dense step (the CUDA kernel) over
+   ``states_by_slot()`` against ``oracle_verdict`` on the whole batch.
+   ``policy-timing``: ``process_packed``, both steps and the kernel, 50
+   timed calls each.  ``policy-propagation``: on a BASELINE-config-1
+   sized state (100 rules), 10 single-rule adds and 10 deletes, each
+   timed to the engine's ``on_revision_served`` and to the batch in
+   which the flow it opens or closes flips.
+12. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage and serving paths, 0, beside those of v4, v6 and the policy
+   path), the card's name and power limit from nvidia-smi, and a last
+   line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import ipaddress
 import json
+import multiprocessing
 import sys
 import threading
 import time
@@ -169,37 +194,46 @@ from cilium_tpu_torch.analytics.decode import (quiesced_section,
                                                top_talkers)
 from cilium_tpu_torch.analytics.oracle import oracle_analytics_step
 from cilium_tpu_torch.compiler.bucket_tables import compile_states_bucketed
-from cilium_tpu_torch.compiler.lpm import (LPM_MISS, oracle_lpm_u32,
-                                           parse_prefixes)
-from cilium_tpu_torch.compiler.policy_tables import oracle_verdict
+from cilium_tpu_torch.compiler.lpm import (LPM_MISS, compile_lpm,
+                                           oracle_lpm_u32, parse_prefixes)
+from cilium_tpu_torch.compiler.policy_tables import (compile_endpoints,
+                                                     oracle_verdict)
 from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
                                               oracle_match)
 from cilium_tpu_torch.datapath import conntrack, engine, events, pipeline
 from cilium_tpu_torch.datapath.codes import (VERDICT_DROP, VERDICT_DROP_L7,
                                              WORLD_IDENTITY)
 from cilium_tpu_torch.datapath.pipeline import (PACKED_FIELDS,
-                                                host_fail_static_step)
+                                                RawPacketBatch,
+                                                host_fail_static_step,
+                                                make_step)
 from cilium_tpu_torch.datapath.serving import VerdictDispatcher
 from cilium_tpu_torch.datapath.supervisor import DeviceSupervisor
 from cilium_tpu_torch.device import cuda_ms, host_buffer, nvidia_smi, probe
 from cilium_tpu_torch.hubble.aggregation import EVENT_BIAS
+from cilium_tpu_torch.identity import IdentityCache
 from cilium_tpu_torch.l7.dns import DNSPolicyEngine
 from cilium_tpu_torch.l7.fast import encode_payloads
 from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
                                       rule_to_combined_regex)
 from cilium_tpu_torch.l7.http import request_line as http_request_line
 from cilium_tpu_torch.l7.kafka import KafkaPolicyEngine
+from cilium_tpu_torch.labels import LabelArray
 from cilium_tpu_torch.native import PKT_HEADER_DTYPE
 from cilium_tpu_torch.observability import stages
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.ops.bucket_ops import BucketVerdictEngine
 from cilium_tpu_torch.ops.dfa_engine import DFAEngine
 from cilium_tpu_torch.ops.lpm_ops import lpm_lookup
-from cilium_tpu_torch.policy.api import PortRuleHTTP
+from cilium_tpu_torch.policy.api import Decision, PortRuleHTTP
+from cilium_tpu_torch.policy.jsonio import rules_from_json
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
                                               PolicyMapStateEntry)
+from cilium_tpu_torch.policy.repository import Repository
+from cilium_tpu_torch.policy.trace import Port, SearchContext
 from cilium_tpu_torch.profile_config1 import (V4_WARMUP, profile_run,
                                               profile_step)
+from cilium_tpu_torch.proxy import PROXY_PORT_MAX, proxy_id
 from cilium_tpu_torch.threat.model import ThreatConfig, default_model
 from cilium_tpu_torch.threat.oracle import oracle_threat_step
 from cilium_tpu_torch.threat.trainer import ThreatTrainer
@@ -213,13 +247,16 @@ from cilium_tpu_torch.workloads import (ANALYTICS, CONFIG2_FIELDS,
                                         L7_DNS_NAMES, L7_FLOW_SHARE,
                                         L7_WINDOW, THREAT, TRAFFICS,
                                         V4_T0, Config1Run, Config2Run,
-                                        V4Run, V6Run, build_config2,
+                                        PolicyRun, V4Run, V6Run,
+                                        build_config2,
                                         config3_requests, config4_requests,
                                         config5_names, l7_serving_packets,
                                         l7_serving_packets6,
                                         l7_serving_state,
                                         mixed_bucket_packets,
                                         mixed_bucket_states,
+                                        policy_packets, policy_remotes,
+                                        policy_state,
                                         threat_enforce_config, unpack6,
                                         v4_serving_packets,
                                         v4_serving_state, v6_of,
@@ -2866,6 +2903,508 @@ def phase_serving(dev, state4) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: rules to verdicts
+# ---------------------------------------------------------------------------
+
+POLICY_STATE = (1000, 16, 24, 24)   # policy_state(): rules, endpoints,
+POLICY_PROPAGATION = (100, 16, 24, 8)   # peers, CIDRs
+POLICY_BATCH = 1 << 20
+POLICY_CT_SLOTS = 1 << 21
+POLICY_NOW = V4_T0
+POLICY_TIMED = 50
+POLICY_CYCLE = 4          # distinct batches the timed process_packed cycles
+POLICY_CHANGES = 10       # single-rule adds, and as many deletes
+POLICY_PROBE_BATCH = 4096  # rows of each batch served while a change spreads
+POLICY_WORKERS = 6        # repository-oracle processes (the twin has its own)
+POLICY_WAIT_S = 300.0
+
+
+def policy_outputs(run, outs) -> dict:
+    """Every output of one ``process_packed`` on a ``PolicyRun`` and every
+    buffer it wrote (every CT field, sentinel included, and both
+    counters of every policy entry), as numpy copies."""
+    verdict, event, identity, nat = outs
+    dp = run.datapath
+    got = {"verdict": verdict, "event": event, "identity": identity}
+    got.update({f"nat.{f}": getattr(nat, f) for f in nat._fields})
+    n = dp.ct.slots + 1
+    got.update({f"ct.{f}": dp.ct.state[i, :n]
+                for i, f in enumerate(conntrack.FIELDS)})
+    # the table geometry grows in build order, which the builder threads
+    # interleave: each counter is taken at its entry, in key order
+    key_id, key_meta, _ = run.table_mgr.host_mirror()
+    ep, col = np.nonzero(key_meta)
+    at = (ep * key_meta.shape[1] + col)[np.lexsort(
+        (key_meta[ep, col], key_id[ep, col], ep))]
+    at = torch.as_tensor(at, device=dp.device)
+    got.update({f"counters.{f}": getattr(dp.counters, f)[at]
+                for f in ("packets", "bytes")})
+    # copies: on the CPU .cpu() would alias buffers later calls update
+    return {k: t.to("cpu", copy=True).numpy() for k, t in got.items()}
+
+
+def policy_map_states(run) -> dict:
+    """{table slot: {(identity, port, proto, direction): proxy port}}."""
+    return {slot: {(k.identity, k.dest_port, k.nexthdr, k.direction):
+                   e.proxy_port for k, e in st.items()}
+            for slot, st in run.table_mgr.states_by_slot().items()}
+
+
+def policy_twin(state, packed, ct_slots: int) -> dict:
+    """The CPU twin (a worker process): ``state``'s rules imported from
+    their JSON into a ``PolicyRun`` on the CPU, ``packed`` served once
+    at ``POLICY_NOW``; its outputs and buffers, redirects, map states and
+    endpoint states."""
+    run = PolicyRun.from_state(state, device="cpu", ct_slots=ct_slots)
+    try:
+        if not run.wait_for_policy_revision(timeout=POLICY_WAIT_S):
+            raise RuntimeError("the CPU twin's builds did not finish")
+        outs = run.datapath.process_packed(torch.as_tensor(packed),
+                                           now=POLICY_NOW)
+        return {"outputs": policy_outputs(run, outs),
+                "redirects": {r.id: r.proxy_port
+                              for r in run.proxy.redirects()},
+                "states": policy_map_states(run),
+                "endpoint_states": run.endpoint_states(),
+                "revision": run.repo.revision}
+    finally:
+        run.shutdown()
+
+
+def policy_oracle(rules_json: str, rows) -> list:
+    """(allowed, covered, redirected) of each (endpoint labels, remote
+    labels, port, "TCP"/"UDP", egress) row by the port's repository over
+    the rules of ``rules_json`` (a worker process).  ``allowed``:
+    ``allows_ingress`` / ``allows_egress``.  ``covered``: the endpoint's
+    own L4 policy (resolved for the endpoint alone, as a regeneration
+    resolves it) has a filter for the port that selects the remote.
+    ``redirected``: covered, and that filter is a redirect, unless it
+    selects every peer and the remote is allowed at L3 (the
+    L3-only entry never redirects, policy.h:83)."""
+    repo = Repository()
+    repo.add_list(rules_from_json(rules_json))
+    l4 = {}
+    out = []
+    for ep_labels, far_labels, port, proto, egress in rows:
+        mine = LabelArray.parse(*ep_labels)
+        far = LabelArray.parse(*far_labels)
+        if egress:
+            ctx = dict(from_labels=mine, to_labels=far)
+            allows, label_access = repo.allows_egress, \
+                repo.allows_egress_label_access
+        else:
+            ctx = dict(from_labels=far, to_labels=mine)
+            allows, label_access = repo.allows_ingress, \
+                repo.allows_ingress_label_access
+        allowed = allows(SearchContext(dports=[Port(port, proto)], **ctx)) \
+            == Decision.ALLOWED
+        if (ep_labels, egress) not in l4:
+            l4[ep_labels, egress] = (
+                repo.resolve_l4_egress_policy(SearchContext(
+                    from_labels=mine)) if egress else
+                repo.resolve_l4_ingress_policy(SearchContext(
+                    to_labels=mine)))
+        flt = l4[ep_labels, egress].get(f"{port}/{proto}")
+        covered = flt is not None and flt.matches_labels(far)
+        redirected = covered and flt.is_redirect() and not (
+                flt.allows_all_at_l3() and label_access(
+                    SearchContext(**ctx)) == Decision.ALLOWED)
+        out.append((allowed, covered, redirected))
+    return out
+
+
+def policy_oracle_verdicts(states, slot, identity, dport, proto,
+                           direction) -> np.ndarray:
+    """``oracle_verdict`` of every row, computed once per distinct
+    (slot, identity, port, proto, direction)."""
+    keys = np.stack([slot, identity, dport, proto, direction],
+                    1).astype(np.int64)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    want = np.array([oracle_verdict(states[int(s)], int(i), int(p),
+                                    int(pr), int(d))
+                     for s, i, p, pr, d in uniq], np.int32)
+    return want[inv.reshape(-1)]
+
+
+def policy_twin_mismatches(card: dict, twin: dict, redirects: dict,
+                           states: dict):
+    """({output or buffer: differing elements}, ports renamed) between the
+    card and the CPU twin, with "map_state": the differing map-state
+    entries.  Proxy ports are handed out in build order, which the
+    builder threads interleave, so the twin's ports are first renamed to
+    the card's through their redirect ids (the two runs must hold the
+    same redirects)."""
+    if set(twin["redirects"]) != set(redirects):
+        raise AssertionError("the CPU twin holds other redirects than the "
+                             "card's run")
+    rename = np.arange(PROXY_PORT_MAX + 1, dtype=np.int32)
+    for rid, port in twin["redirects"].items():
+        rename[port] = redirects[rid]
+    renamed = sum(redirects[rid] != port
+                  for rid, port in twin["redirects"].items())
+    got = dict(twin["outputs"])
+    for k in ("verdict", "ct.proxy_port"):
+        v = got[k]
+        got[k] = np.where(v > 0, rename[np.clip(v, 0, PROXY_PORT_MAX)], v)
+    out = {k: int((card[k] != got[k]).sum()) if card[k].shape ==
+           got[k].shape else max(card[k].size, got[k].size) for k in card}
+    out["map_state"] = sum(
+        len(set(st.items()) ^ {(key, int(rename[p]) if p else 0)
+                               for key, p in
+                               twin["states"].get(slot, {}).items()})
+        for slot, st in states.items())
+    return out, renamed
+
+
+def policy_probes(run, state, count: int) -> list:
+    """``count`` (endpoint index, peer index, port, rule dict): a rule
+    that opens ingress from the peer to the endpoint on a port no rule
+    names, for pairs the repository denies now and allows with it."""
+    out = []
+    for i, (_, _, ep_labels) in enumerate(state.endpoints):
+        for j, (_, peer_labels) in enumerate(state.peers):
+            port = state.stranger_ports[len(out) % len(state.stranger_ports)]
+            rule_dict = {
+                "endpointSelector": {"matchLabels": dict(
+                    l.split("=", 1) for l in ep_labels)},
+                "ingress": [{"fromEndpoints": [{"matchLabels": dict(
+                    l.split("=", 1) for l in peer_labels)}],
+                    "toPorts": [{"ports": [{"port": str(port),
+                                            "protocol": "TCP"}]}]}],
+                "labels": [f"k8s:rule=p{len(out)}"]}
+            ctx = SearchContext(from_labels=LabelArray.parse(*peer_labels),
+                                to_labels=LabelArray.parse(*ep_labels),
+                                dports=[Port(port, "TCP")])
+            scratch = Repository()
+            scratch.add_list(run.repo.rules +
+                             rules_from_json(json.dumps(rule_dict)))
+            if run.repo.allows_ingress(ctx) != Decision.ALLOWED and \
+                    scratch.allows_ingress(ctx) == Decision.ALLOWED:
+                out.append((i, j, port, rule_dict))
+                break
+        if len(out) == count:
+            return out
+    raise AssertionError(f"only {len(out)} probe flows of {count}")
+
+
+def policy_propagation(dev) -> dict:
+    """Single-rule adds and deletes on a BASELINE-config-1-sized state:
+    each timed from ``policy_add`` / ``policy_delete`` (``repo.add_list``
+    / ``delete_by_labels``) to the engine's ``on_revision_served`` and to
+    the first batch in which the flow the rule opens or closes flips."""
+    state = policy_state(*POLICY_PROPAGATION)
+    run = PolicyRun.from_state(state, device=dev)
+    samples = []
+    try:
+        if not run.wait_for_policy_revision(timeout=POLICY_WAIT_S):
+            raise AssertionError("propagation state: builds did not finish")
+        served = {}
+        run.datapath.on_revision_served = \
+            lambda rev: served.setdefault(rev, time.perf_counter())
+        batch, _ = policy_packets(state, policy_remotes(state),
+                                  POLICY_PROBE_BATCH, seed=21)
+        rows = {f: PACKED_FIELDS.index(f) for f in PACKED_FIELDS}
+        sport = iter(range(1024, 1 << 30))
+        for k, (i, j, port, rule_dict) in enumerate(
+                policy_probes(run, state, POLICY_CHANGES)):
+            ep_ip = state.endpoints[i][1]
+            for f, v in (("endpoint", i), ("dport", port), ("proto", 6),
+                         ("direction", 0), ("tcp_flags", conntrack.TCP_SYN),
+                         ("saddr", int(ipaddress.IPv4Address(
+                             state.peers[j][0]))),
+                         ("daddr", int(ipaddress.IPv4Address(ep_ip)))):
+                batch[rows[f], 0] = np.uint32(v).view(np.int32)
+
+            def serve() -> int:
+                batch[rows["sport"], 0] = 1024 + next(sport) % 64000
+                v, _e, _i, _n = run.datapath.process_packed(
+                    torch.as_tensor(batch, device=dev), now=POLICY_NOW)
+                return int(v[0])
+
+            if serve() >= 0:
+                raise AssertionError(f"probe {k} is allowed before its rule")
+            for change in ("add", "delete"):
+                t0 = time.perf_counter()
+                if change == "add":
+                    rev = run.policy_add(rules_from_json(
+                        json.dumps(rule_dict)))
+                else:
+                    rev, _ = run.policy_delete(
+                        LabelArray.parse(*rule_dict["labels"]))
+                deadline, batches = t0 + POLICY_WAIT_S, 0
+                while True:
+                    batches += 1
+                    verdict = serve()
+                    if (verdict >= 0) == (change == "add"):
+                        t_flip = time.perf_counter()
+                        break
+                    if time.perf_counter() > deadline:
+                        raise AssertionError(
+                            f"probe {k}: the {change} did not reach the "
+                            f"card in {POLICY_WAIT_S} s")
+                    time.sleep(0.001)
+                if rev not in served or served[rev] > t_flip:
+                    raise AssertionError(
+                        f"probe {k}: revision {rev} flipped the flow "
+                        f"before the engine reported it served")
+                if not run.wait_for_policy_revision(rev, POLICY_WAIT_S):
+                    raise AssertionError(f"revision {rev} not applied")
+                samples.append({"change": change, "revision": rev,
+                                "served_s": served[rev] - t0,
+                                "flip_s": t_flip - t0,
+                                "batches": batches})
+    finally:
+        run.shutdown()
+
+    def pct(key, which=("add", "delete")):
+        xs = [s[key] for s in samples if s["change"] in which]
+        return {"p50": float(np.percentile(xs, 50)),
+                "p99": float(np.percentile(xs, 99)), "samples": len(xs)}
+
+    return {"state": dict(zip(("rules", "endpoints", "peers", "cidrs"),
+                              POLICY_PROPAGATION)),
+            "served_s": pct("served_s"), "flip_s": pct("flip_s"),
+            "add_flip_s": pct("flip_s", ("add",)),
+            "delete_flip_s": pct("flip_s", ("delete",)),
+            "samples": samples}
+
+
+def phase_policy(dev, pair_s: float = None,
+                 function_pair_s: float = None) -> int:
+    """Rules to verdicts on the card; returns the dense kernel's launches
+    on the path (the dense step over the rule-derived map states).  With
+    the kernel's per-pair seconds (the ``sass`` phase), the kernel's
+    timing carries its bound."""
+    t_phase = time.perf_counter()
+    state = policy_state(*POLICY_STATE)
+    remotes = policy_remotes(state)
+    packed, remote = policy_packets(state, remotes, POLICY_BATCH)
+    with multiprocessing.get_context("spawn").Pool(
+            POLICY_WORKERS + 1) as pool:
+        twin = pool.apply_async(policy_twin,
+                                (state, packed, POLICY_CT_SLOTS))
+        run = PolicyRun(device=dev, ct_slots=POLICY_CT_SLOTS)
+        try:
+            for ep_id, ip, labels in state.endpoints:
+                run.endpoint_create(ep_id, ipv4=ip, labels=labels)
+            for ip, labels in state.peers:
+                run.add_peer(ip, labels)
+            t0 = time.perf_counter()
+            rev = run.policy_add(rules_from_json(state.rules_json))
+            setup_s = time.perf_counter() - t0
+            if not run.wait_for_policy_revision(timeout=POLICY_WAIT_S):
+                raise AssertionError("policy-build: builds did not finish")
+            build_s = time.perf_counter() - t0
+            result = policy_card(dev, run, state, remotes, packed, remote,
+                                 pool, rev, setup_s, build_s,
+                                 (pair_s, function_pair_s))
+            twin_res = twin.get(timeout=POLICY_WAIT_S)
+        finally:
+            run.shutdown()
+        twin_s = time.perf_counter() - t_phase
+        result["parity"]["twin"], result["parity"]["twin_ports_renamed"] = \
+            policy_twin_mismatches(result.pop("card_outputs"), twin_res,
+                                   result.pop("redirects"),
+                                   result.pop("map_states"))
+        result["parity"]["twin_endpoints_ready"] = sum(
+            s == ("ready", twin_res["revision"])
+            for s in twin_res["endpoint_states"].values())
+    parity = result["parity"]
+    emit("policy-parity", **parity, twin_ready_s=twin_s,
+         name_power_limit=nvidia_smi("name,power.limit"))
+    emit("policy-timing", **result["timing"],
+         name_power_limit=nvidia_smi("name,power.limit"))
+    propagation = policy_propagation(dev)
+    emit("policy-propagation", **propagation,
+         name_power_limit=nvidia_smi("name,power.limit"))
+    counts = [n for k, n in parity.items() if k.endswith("mismatches")]
+    counts += list(parity["twin"].values())
+    if any(counts) or parity["twin_endpoints_ready"] != len(state.endpoints):
+        raise AssertionError(f"policy-parity: {parity}")
+    emit("policy", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": result["launches"]},
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return result["launches"]
+
+
+def policy_card(dev, run, state, remotes, packed, remote, pool, rev,
+                setup_s, build_s, pair_seconds) -> dict:
+    """The card's side of ``phase_policy`` once its builds are done:
+    ``policy-build``, then the batch through ``process_packed``, the
+    identity, repository and map-state oracles (the repository's in
+    ``pool``), the hash and dense steps over ``states_by_slot()`` and the
+    timed calls."""
+    n_ep = len(state.endpoints)
+    endpoints = {ep.id: ep for ep in run.endpoints.endpoints()}
+    ep_states = run.endpoint_states()
+    ready = sum(s == ("ready", rev) for s in ep_states.values())
+    if run.repo.revision != rev or ready != n_ep:
+        raise AssertionError(f"policy-build: endpoints {ep_states} at "
+                             f"revision {run.repo.revision}")
+    for i, (ep_id, _, _) in enumerate(state.endpoints):
+        if endpoints[ep_id].table_slot != i:
+            raise AssertionError("endpoint slots are not in create order")
+    last = {}
+    for ep_id, b_rev, regen_s, sync_s in run.builds:
+        if b_rev == rev:
+            last[ep_id] = (regen_s, sync_s)
+    regen = [r for r, _ in last.values()]
+    sync = [s * 1e3 for _, s in last.values()]
+    states = run.table_mgr.states_by_slot()
+    entries = [len(states[s]) for s in range(n_ep)]
+    emit("policy-build", rules=POLICY_STATE[0], endpoints=n_ep,
+         peers=len(state.peers), cidrs=len(state.cidrs),
+         identities=len(IdentityCache.snapshot(run.allocator)),
+         redirects=len(run.proxy), revision=rev,
+         endpoints_ready_at_revision=ready,
+         import_s=setup_s, build_s=build_s, builds=len(last),
+         regeneration_s={"p50": float(np.median(regen)),
+                         "max": float(max(regen))},
+         entries_per_endpoint={"min": min(entries),
+                               "median": float(np.median(entries)),
+                               "max": max(entries)},
+         sync_refresh_ms={"p50": float(np.median(sync)),
+                          "max": float(max(sync))},
+         name_power_limit=nvidia_smi("name,power.limit"))
+
+    # the batch on the card, and the identity oracle: the ipcache's own
+    # longest match of each remote address (world when none)
+    dp = run.datapath
+    dp.telemetry_enabled = False
+    outs = dp.process_packed(torch.as_tensor(packed, device=dev),
+                             now=POLICY_NOW)
+    card = policy_outputs(run, outs)
+    rid = np.array([run.ipcache.lookup_longest_prefix(a) or WORLD_IDENTITY
+                    for a in remotes], np.int64)
+    want_id = rid[remote]
+    parity = {"rows": int(packed.shape[1]),
+              "identity_mismatches": int((card["identity"] != want_id)
+                                         .sum()),
+              "allowed_share": float((card["verdict"] >= 0).mean()),
+              "redirected_share": float((card["verdict"] > 0).mean())}
+
+    # the repository oracle on a sample, in the worker processes
+    cache = IdentityCache.snapshot(run.allocator)
+    labels = {ep.table_slot: tuple(str(l) for l in ep.label_array())
+              for ep in endpoints.values()}
+    col = {f: packed[PACKED_FIELDS.index(f)] for f in PACKED_FIELDS}
+    idx = np.linspace(0, packed.shape[1] - 1, ORACLE_SAMPLE).astype(int)
+    rows = [(labels[int(col["endpoint"][i])],
+             tuple(str(l) for l in cache[int(want_id[i])]),
+             int(col["dport"][i]), "TCP" if col["proto"][i] == 6 else "UDP",
+             bool(col["direction"][i])) for i in idx]
+    chunks = np.array_split(np.arange(len(rows)), POLICY_WORKERS)
+    oracle = [pool.apply_async(policy_oracle, (state.rules_json,
+                                               [rows[i] for i in c]))
+              for c in chunks]
+
+    # the hash step and the dense step (the CUDA kernel) over the map
+    # states the rules gave, against oracle_verdict on the whole batch
+    ordered = [states[s] for s in range(n_ep)]
+    prefixes = run.ipcache.to_lpm_prefix_families()[0]
+    step, tables, counters = make_step(
+        compile_endpoints(ordered, revision=rev), compile_lpm(prefixes),
+        device=dev)
+    dense = dv.compile_dense(ordered, device=dev)
+    segments = dv.dense_segments(dense)
+    dense_lpm = dv.compile_dense_lpm(prefixes, device=dev)
+    dense_pk = torch.zeros(dense.ep.shape[0], dtype=torch.int32,
+                           device=dev)
+    dense_by = torch.zeros_like(dense_pk)
+    far = np.where(col["direction"] == 1, col["daddr"], col["saddr"])
+    pk = {k: torch.as_tensor(v, device=dev) for k, v in (
+        ("endpoint", col["endpoint"]), ("src_addr", far),
+        ("dport", col["dport"]), ("proto", col["proto"]),
+        ("direction", col["direction"]), ("length", col["length"]))}
+    raw = RawPacketBatch(is_fragment=torch.zeros_like(pk["endpoint"]),
+                         **pk)
+
+    def hash_step():
+        return step(tables, counters, raw)
+
+    def dense_step():
+        return dv.dense_datapath_step(
+            dense, dense_lpm, dense_pk, dense_by, pk["endpoint"],
+            pk["src_addr"], pk["dport"], pk["proto"], pk["direction"],
+            pk["length"], segments=segments)
+
+    dv.dense_verdict.launches = 0
+    hv, hid, _ = hash_step()
+    dvv, did, _, _ = dense_step()
+    torch.cuda.synchronize()
+    launches = dv.dense_verdict.launches
+    if launches < 1:
+        raise AssertionError("policy: the dense kernel was not launched")
+    want_v = policy_oracle_verdicts(states, col["endpoint"], want_id,
+                                    col["dport"], col["proto"],
+                                    col["direction"])
+    hv, hid = hv.cpu().numpy(), hid.cpu().numpy()
+    dvv, did = dvv.cpu().numpy(), did.cpu().numpy()
+    parity.update(
+        hash_oracle_mismatches=int((hv != want_v).sum()),
+        dense_oracle_mismatches=int((dvv != want_v).sum()),
+        hash_identity_mismatches=int((hid != want_id).sum()),
+        dense_identity_mismatches=int((did != want_id).sum()),
+        serving_vs_map_state_mismatches=int((card["verdict"] != want_v)
+                                            .sum()))
+
+    # timing: process_packed over fresh batches, the two steps, the kernel
+    batches = [torch.as_tensor(policy_packets(state, remotes, POLICY_BATCH,
+                                              seed=13 + k)[0], device=dev)
+               for k in range(POLICY_CYCLE)]
+    turn = iter(range(1 << 30))
+    serve_ms = cuda_ms(lambda: dp.process_packed(
+        batches[next(turn) % POLICY_CYCLE], now=POLICY_NOW + 1),
+        POLICY_TIMED)
+    args = (pk["endpoint"], torch.as_tensor(did, device=dev), pk["dport"],
+            pk["proto"], pk["direction"], pk["length"])
+    timed = {"process_packed": timing(serve_ms, POLICY_BATCH),
+             "hash_step": timing(cuda_ms(hash_step, POLICY_TIMED),
+                                 POLICY_BATCH),
+             "dense_step": timing(cuda_ms(dense_step, POLICY_TIMED),
+                                  POLICY_BATCH),
+             "dense_kernel": timing(cuda_ms(lambda: dv.dense_verdict(
+                 dense, *args, segments=segments), POLICY_TIMED),
+                 POLICY_BATCH)}
+    timed["dense_kernel"]["path_launches"] = launches
+    if pair_seconds[0] is not None:
+        timed["dense_kernel"].update(dense_bound_ms(
+            dense, pk["endpoint"], *pair_seconds))
+    timed["entries"] = int(dense.ep.shape[0])
+    timed["ct_entries"] = dp.ct_entries()
+
+    # the repository oracle's verdicts
+    # an allowed row forwards (0) or, where its redirect covers it, takes
+    # the redirect's proxy port; a denied row drops.  A row that
+    # allows_* denies while the endpoint's own L4 policy covers it
+    # (fromRequires with an L3-only rule beside an L7 filter: ROADMAP.md
+    # section 3) is counted apart, and its verdict must be the one that
+    # policy gives, as the reference's map state gives it
+    decided = [d for res in oracle for d in res.get(timeout=POLICY_WAIT_S)]
+    bad = redirected = divergent = 0
+    for i, (allowed, covered, redir) in zip(idx, decided):
+        v = int(card["verdict"][i])
+        divergent += covered and not allowed
+        if redir:
+            redirected += 1
+            want = run.proxy.get(proxy_id(
+                state.endpoints[int(col["endpoint"][i])][0],
+                not col["direction"][i],
+                "TCP" if col["proto"][i] == 6 else "UDP",
+                int(col["dport"][i]))).proxy_port
+            bad += v != want
+        else:
+            bad += v != 0 if allowed or covered else v >= 0
+    parity.update(repository_sample=len(idx),
+                  repository_redirected=redirected,
+                  repository_mismatches=int(bad),
+                  repository_denied_but_covered=int(divergent))
+    return {"parity": parity, "timing": timed, "launches": launches,
+            "card_outputs": card, "map_states": policy_map_states(run),
+            "redirects": {r.id: r.proxy_port for r in run.proxy.redirects()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2917,6 +3456,7 @@ def main() -> int:
     l7_launches = phase_l7(dev)
     stage_launches = phase_stages(dev, state4)
     serving_launches = phase_serving(dev, state4)
+    policy_launches = phase_policy(dev, pair_s, function_pair_s)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -2951,6 +3491,7 @@ def main() -> int:
         "l7_path_launches": l7_launches,
         "stage_path_launches": stage_launches,
         "serving_path_launches": serving_launches,
+        "policy_path_launches": policy_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -7,8 +7,10 @@ through both packages and their outputs match bit for bit.
 
 Layout mirrors the reference: ``compiler/`` (host numpy table builders),
 ``ops/`` (device lookups and the dense verdict engine), ``datapath/``
-(verdict step and fused config-1 pipeline), ``policy/`` (the policymap
-ABI).  ``csrc/`` holds the hand-written CUDA kernels, built at first use
+(the verdict steps and the engine), ``policy/`` (rules, repository and
+map-state resolution), ``labels`` / ``identity`` / ``ipcache/`` /
+``endpoint/`` / ``proxy`` (the host control plane that turns rules into
+map states).  ``csrc/`` holds the hand-written CUDA kernels, built at first use
 by ``kernels.py``.
 
 Entry points take ``device=``; the default is ``"cuda"`` and a missing

@@ -1,1 +1,2 @@
-"""Device-resident per-endpoint policy tables (torch)."""
+"""Endpoints (state machine, policy regeneration), the endpoint manager
+with its build queue, and the device-resident policy tables (torch)."""

@@ -1,1 +1,2 @@
-"""L7 policy engines: HTTP and DNS on the device, Kafka on the host."""
+"""L7 policy engines: HTTP and DNS on the device, Kafka on the host;
+the pluggable parser framework (host)."""

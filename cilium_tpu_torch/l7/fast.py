@@ -189,10 +189,10 @@ def build_fast_programs(specs: Sequence[FastProgramSpec],
 def programs_from_redirects(redirects, window: int = DEFAULT_WINDOW,
                             dns_selectors: Optional[Dict] = None
                             ) -> Optional[L7FastPrograms]:
-    """Classify a redirect list (objects with ``parser_type``,
-    ``proxy_port`` and an optional ``l7_filter``) plus optional
-    {proxy_port: FQDN selector list} DNS entries, and build the fused
-    set from the eligible ones; None when nothing qualifies."""
+    """Classify a ``ProxyManager`` redirect list (``proxy.Redirect``,
+    plus optional {proxy_port: FQDN selector list} DNS entries) and
+    build the fused set from the eligible ones; None when nothing
+    qualifies: every redirect keeps the proxy path."""
     specs: List[FastProgramSpec] = []
     for redir in redirects:
         flt = getattr(redir, "l7_filter", None)

@@ -1,8 +1,9 @@
 """Prometheus-style metrics registry (no external deps).
 
 Copy of ``cilium_tpu/utils/metrics.py``'s registry (counters, gauges,
-histograms, text exposition) with only the series the serving tier
-writes: the verdict outcomes and the dataplane supervision series.  The
+histograms, text exposition) with only the series the port writes: the
+endpoint build queue's, the verdict outcomes and the dataplane
+supervision series.  The
 serving, SLO, stage and flight-recorder series are registered by their
 own modules.
 """
@@ -229,8 +230,18 @@ class Registry:
         return "\n".join(lines) + "\n"
 
 
-# Process-global registry and the series of the serving tier.
+# Process-global registry and the series the port writes.
 registry = Registry()
+
+# The endpoint build queue (endpoint/manager.py).
+ENDPOINT_COUNT = registry.gauge(
+    "endpoint_count", "Number of endpoints managed by this agent")
+ENDPOINT_REGENERATION_COUNT = registry.counter(
+    "endpoint_regenerations",
+    "Count of all endpoint regenerations that have completed")
+ENDPOINT_REGENERATION_TIME = registry.histogram(
+    "endpoint_regeneration_seconds",
+    "Endpoint regeneration time")
 
 POLICY_VERDICTS = registry.counter(
     "policy_verdicts_total", "Datapath verdicts by outcome")

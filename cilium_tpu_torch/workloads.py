@@ -37,14 +37,23 @@ bench's two redirects (HTTP ingress :80, DNS egress :53) on every
 endpoint, 10% of the pool flows aimed at them and a payload per row;
 ``threat_enforce_config`` and ``ANALYTICS`` are the threat and analytics
 settings the serving runs use.
+
+``policy_state`` writes a rule set as JSON, the text users import, with
+the endpoints, peers and prefixes it is written for; ``PolicyRun`` takes
+rules to verdicts through the ported control plane (identities, the
+repository, endpoints and their build queue, the ipcache, the proxy's
+redirects) into a ``Datapath``, wired as the daemon wires it, and
+``policy_remotes`` / ``policy_packets`` make batches of new connections
+over such a state.
 """
 
 from __future__ import annotations
 
 import ipaddress
+import json
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +69,13 @@ from .datapath.lb import (Backend, Backend6, Service, Service6, compile_lb,
 from .datapath.pipeline import (PACKED_FIELDS, FullPacketBatch6,
                                 RawPacketBatch, make_step)
 from .device import DeviceLike, resolve_device
+from .endpoint.endpoint import Endpoint
+from .endpoint.manager import EndpointManager
+from .endpoint.tables import DeviceTableManager
+from .identity import Identity, IdentityCache, LocalIdentityAllocator
+from .ipcache.cidr import (allocate_cidr_identities,
+                           release_cidr_identities)
+from .ipcache.ipcache import SOURCE_AGENT_LOCAL, SOURCE_KVSTORE, IPCache
 from .l7.fast import (FAST_DNS, FAST_HTTP, FastProgramSpec,
                       L7FastPrograms, build_fast_programs, classify_dns,
                       classify_http, dns_match_string, encode_payloads,
@@ -69,11 +85,17 @@ from .l7.kafka import KafkaRequest
 from .ops.bucket_ops import BucketVerdictEngine
 from .ops.dense_verdict import (compile_dense, compile_dense_lpm,
                                 dense_datapath_step, dense_segments)
+from .labels import LabelArray, Labels
 from .ops.lpm_ops import lpm_lookup
-from .policy.api import FQDNSelector, PortRuleHTTP, PortRuleKafka
+from .policy.api import FQDNSelector, PortRuleHTTP, PortRuleKafka, Rule
+from .policy.jsonio import rules_from_json
 from .policy.mapstate import (EGRESS, INGRESS, PolicyKey, PolicyMapState,
                               PolicyMapStateEntry)
+from .policy.repository import Repository
+from .proxy import ProxyManager
 from .threat.model import ThreatConfig
+from .utils.lock import RMutex
+from .utils.trigger import Trigger
 
 
 def build_config1(n_rules: int = 100, n_endpoints: int = 16, seed: int = 7
@@ -1165,3 +1187,397 @@ def l7_serving_packets6(state: L7ServingState, batch: int,
     for packed in v6_serving_packets(v6_of(state.base), batch, n_flows,
                                      seed):
         yield packed, _aim_l7(state, packed, rows, n_flows, rng)
+
+
+# ---------------------------------------------------------------------------
+# Rules to verdicts: a rule set as users import it, and the policy path
+# ---------------------------------------------------------------------------
+
+POLICY_APPS = ("web", "api", "db", "cache", "auth", "queue", "search",
+               "store")
+POLICY_TIERS = ("front", "back", "data", "ops", "edge")
+POLICY_PORTS = 200                 # distinct destination ports rules name
+POLICY_ENDPOINT_ID_BASE = 1000
+POLICY_HTTP_PATHS = ("/api/v1/.*", "/public/.*", "/static/.*", "/health")
+# rule kinds and their shares (the kinds of tests/test_policygen_matrix.py:
+# L3-only, L4 with and without fromEndpoints, HTTP on targeted rules,
+# egress L3 / L4), with toCIDR / fromCIDR rules beside them; a few
+# fromRequires rules are added on top (``policy_state``)
+POLICY_KINDS = {"l3": 0.14, "l4": 0.22, "l4-any": 0.08, "l7": 0.10,
+                "egress-l3": 0.12, "egress-l4": 0.16, "to-cidr": 0.10,
+                "from-cidr": 0.08}
+
+
+@dataclass
+class PolicyState:
+    """A rule set and the workloads it is written for.  ``rules_json`` is
+    the rule text a user imports (``policy/jsonio.rules_from_json``);
+    ``endpoints`` are the node's own (endpoint id, IPv4, labels) and
+    ``peers`` the (IPv4, labels) of remote workloads; ``cidrs`` are the
+    prefixes the rules name; ``ports`` the destination ports they name
+    and ``stranger_ports`` ports that none names."""
+
+    rules_json: str
+    endpoints: List[Tuple[int, str, Tuple[str, ...]]]
+    peers: List[Tuple[str, Tuple[str, ...]]]
+    cidrs: List[str]
+    ports: List[int]
+    stranger_ports: List[int]
+
+
+def _workload_labels(w: int) -> Tuple[str, ...]:
+    return (f"k8s:app={POLICY_APPS[w % len(POLICY_APPS)]}",
+            f"k8s:tier={POLICY_TIERS[(w // len(POLICY_APPS)) % len(POLICY_TIERS)]}")
+
+
+def _policy_cidrs(n_cidrs: int) -> List[str]:
+    """A quarter /16s in 172.16/12, the rest /24s: half inside those /16s
+    (so a rule naming the /16 selects them), half in 192.168/16."""
+    n16 = max(1, n_cidrs // 4) if n_cidrs else 0
+    out = [f"172.{16 + j}.0.0/16" for j in range(n16)]
+    for k in range(n_cidrs - n16):
+        out.append(f"172.{16 + k % n16}.{k + 1}.0/24" if k % 2 == 0
+                   else f"192.168.{k + 1}.0/24")
+    return out
+
+
+def policy_state(n_rules: int = 1000, n_endpoints: int = 16,
+                 n_peers: int = 24, n_cidrs: int = 24, seed: int = 9
+                 ) -> PolicyState:
+    """``n_rules`` rules from a numpy seed over ``n_endpoints`` local
+    endpoints and ``n_peers`` remote workloads (each with ``k8s:app=`` and
+    ``k8s:tier=`` labels and an IPv4 in 10.128/16) and ``n_cidrs``
+    prefixes, in the kinds of ``POLICY_KINDS``, plus one ``fromRequires``
+    rule per 200 (at least one).  Destination ports come from a set of
+    ``POLICY_PORTS``, TCP or UDP; HTTP rules (TCP) redirect to the proxy.
+    Every rule carries a label ``k8s:rule=r<i>`` of its own."""
+    rng = np.random.default_rng(seed)
+    n_work = n_endpoints + n_peers
+    ips = [f"10.128.{w // 250}.{w % 250 + 2}" for w in range(n_work)]
+    endpoints = [(POLICY_ENDPOINT_ID_BASE + i, ips[i], _workload_labels(i))
+                 for i in range(n_endpoints)]
+    peers = [(ips[w], _workload_labels(w)) for w in range(n_endpoints,
+                                                           n_work)]
+    cidrs = _policy_cidrs(n_cidrs)
+    ports = sorted(int(p) for p in rng.choice(np.arange(1, 65536),
+                                              POLICY_PORTS, replace=False))
+    named = set(ports)
+    stranger = []
+    while len(stranger) < 20:
+        p = int(rng.integers(1, 65536))
+        if p not in named and p not in stranger:
+            stranger.append(p)
+
+    def selector() -> Dict:
+        roll = rng.random()
+        app = POLICY_APPS[rng.integers(len(POLICY_APPS))]
+        tier = POLICY_TIERS[rng.integers(len(POLICY_TIERS))]
+        if roll < 0.6:
+            return {"matchLabels": {"k8s:app": app}}
+        if roll < 0.9:
+            return {"matchLabels": {"k8s:tier": tier}}
+        return {"matchLabels": {"k8s:app": app, "k8s:tier": tier}}
+
+    def port_rule(l7: bool = False) -> Dict:
+        proto = "TCP" if l7 or rng.random() < 0.7 else "UDP"
+        pr: Dict = {"ports": [{"port": str(ports[rng.integers(len(ports))]),
+                               "protocol": proto}]}
+        if l7:
+            pr["rules"] = {"http": [
+                {"method": "GET",
+                 "path": POLICY_HTTP_PATHS[rng.integers(
+                     len(POLICY_HTTP_PATHS))]}]}
+        return pr
+
+    kinds = list(POLICY_KINDS)
+    shares = np.array([POLICY_KINDS[k] for k in kinds])
+    rules: List[Dict] = []
+    for i in range(n_rules):
+        kind = kinds[rng.choice(len(kinds), p=shares / shares.sum())]
+        rule: Dict = {"endpointSelector": selector(),
+                      "labels": [f"k8s:rule=r{i}"]}
+        if kind == "l3":
+            rule["ingress"] = [{"fromEndpoints": [selector()]}]
+        elif kind == "l4":
+            rule["ingress"] = [{"fromEndpoints": [selector()],
+                                "toPorts": [port_rule()]}]
+        elif kind == "l4-any":
+            rule["ingress"] = [{"toPorts": [port_rule()]}]
+        elif kind == "l7":
+            rule["ingress"] = [{"fromEndpoints": [selector()],
+                                "toPorts": [port_rule(l7=True)]}]
+        elif kind == "egress-l3":
+            rule["egress"] = [{"toEndpoints": [selector()]}]
+        elif kind == "egress-l4":
+            rule["egress"] = [{"toEndpoints": [selector()],
+                               "toPorts": [port_rule()]}]
+        elif kind == "to-cidr" and cidrs:
+            eg: Dict = {"toCIDR": [cidrs[rng.integers(len(cidrs))]]}
+            if rng.random() < 0.5:
+                eg["toPorts"] = [port_rule()]
+            rule["egress"] = [eg]
+        elif kind == "from-cidr" and cidrs:
+            rule["ingress"] = [{"fromCIDR": [cidrs[rng.integers(
+                len(cidrs))]]}]
+        else:                       # a CIDR kind without prefixes
+            rule["ingress"] = [{"fromEndpoints": [selector()]}]
+        rules.append(rule)
+    for j in range(max(1, n_rules // 200)):
+        rules.append({
+            "endpointSelector": {"matchLabels": {
+                "k8s:app": POLICY_APPS[rng.integers(len(POLICY_APPS))]}},
+            "ingress": [{"fromRequires": [{"matchLabels": {
+                "k8s:tier": POLICY_TIERS[rng.integers(
+                    len(POLICY_TIERS))]}}]}],
+            "labels": [f"k8s:rule=q{j}"]})
+    return PolicyState(rules_json=json.dumps(rules, indent=2,
+                                             sort_keys=True),
+                       endpoints=endpoints, peers=peers, cidrs=cidrs,
+                       ports=ports, stranger_ports=stranger)
+
+
+def policy_remotes(state: PolicyState, seed: int = 11) -> List[str]:
+    """The remote addresses of ``policy_packets``: every endpoint's and
+    peer's IPv4, then 3 addresses inside each of the rules' prefixes
+    (their own identities come from the ipcache's longest match)."""
+    rng = np.random.default_rng(seed)
+    out = [ip for _, ip, _ in state.endpoints] + [ip for ip, _ in
+                                                   state.peers]
+    for cidr in state.cidrs:
+        net = ipaddress.ip_network(cidr)
+        for off in rng.integers(1, net.num_addresses - 1, 3):
+            out.append(str(net.network_address + int(off)))
+    return out
+
+
+def policy_packets(state: PolicyState, remotes: Sequence[str], batch: int,
+                   seed: int = 12) -> Tuple[np.ndarray, np.ndarray]:
+    """(packed [10, batch] int32, remote index [batch]): new connections
+    (random source ports, TCP SYN or UDP) between the local endpoint in
+    slot ``endpoint`` (endpoint i of ``state`` in slot i) and a remote
+    of ``remotes``, half ingress (the remote is the source) and half
+    egress (the remote is the destination), to a port the rules name or,
+    for a fifth of the rows, one they do not; 70% TCP."""
+    rng = np.random.default_rng(seed)
+    n_ep = len(state.endpoints)
+    u32 = lambda ip: int(ipaddress.IPv4Address(ip))  # noqa: E731
+    ep_addr = np.array([u32(ip) for _, ip, _ in state.endpoints], np.int64)
+    rem_addr = np.array([u32(ip) for ip in remotes], np.int64)
+    slot = rng.integers(0, n_ep, batch)
+    remote = rng.integers(0, len(remotes), batch)
+    egress = rng.random(batch) < 0.5
+    ports = np.where(rng.random(batch) < 0.2,
+                     rng.choice(state.stranger_ports, batch),
+                     rng.choice(state.ports, batch))
+    udp = rng.random(batch) >= 0.7
+    local, far = ep_addr[slot], rem_addr[remote]
+    cols = {"endpoint": slot,
+            "saddr": np.where(egress, local, far),
+            "daddr": np.where(egress, far, local),
+            "sport": rng.integers(1024, 65536, batch),
+            "dport": ports,
+            "proto": np.where(udp, 17, 6),
+            "direction": egress.astype(np.int64),
+            "tcp_flags": np.where(udp, 0, conntrack.TCP_SYN),
+            "length": rng.integers(64, 1501, batch),
+            "is_fragment": np.zeros(batch, np.int64)}
+    packed = np.stack([cols[f].astype(np.uint32).view(np.int32)
+                       if f in ("saddr", "daddr") else
+                       cols[f].astype(np.int32) for f in PACKED_FIELDS])
+    return packed, remote.astype(np.int32)
+
+
+class PolicyRun:
+    """Rules to verdicts: labels, identities, the policy repository, the
+    endpoints with their build queue, the ipcache and the proxy's
+    redirects, feeding a ``Datapath`` through a ``DeviceTableManager``.
+
+    The port's stand-in for the daemon's policy path, wired as
+    ``cilium_tpu/daemon/daemon.py`` wires it: ``endpoint_create`` as
+    ``:1439-1500`` (table slot, identity from labels, the slot's
+    identity on the engine, the IP in the ipcache, a build queued),
+    ``policy_add`` / ``policy_delete`` as ``:599-646`` and ``:702-742``
+    (sanitize, one CIDR-identity reference per prefix a rule names, the
+    repository, every endpoint regenerated), ``_regenerate_endpoint`` as
+    ``:1358-1397`` (regenerate against an identity-cache snapshot with
+    the proxy, apply, ``sync_endpoint``, ``refresh_policy(rev)``) and
+    the ipcache's debounced LPM reload as ``:324-331``.  ``add_peer``
+    stands in for the kvstore's remote identities and ipcache entries.
+    It goes when the daemon is ported.
+
+    Builds run on the manager's builder threads; a build that raises
+    leaves its endpoint ``not-ready`` (the reference's worker swallows
+    the exception), so callers check ``endpoint_states`` after
+    ``wait_for_policy_revision``.  Call ``shutdown`` to stop the
+    threads."""
+
+    def __init__(self, device: DeviceLike = None, ct_slots: int = 1 << 16):
+        self.device = resolve_device(device)
+        self.repo = Repository()
+        self.allocator = LocalIdentityAllocator()
+        self.ipcache = IPCache()
+        self.proxy = ProxyManager(device=self.device)
+        self.table_mgr = DeviceTableManager(device=self.device)
+        self.datapath = Datapath(ct_slots=ct_slots, device=self.device)
+        self.datapath.use_table_manager(self.table_mgr)
+        self._lock = RMutex("policy-run")
+        # prefix -> (CIDR identity, references); rule -> its prefixes
+        self._cidr_idents: Dict[str, Tuple[Identity, int]] = {}
+        self._rule_prefixes: Dict[int, List[str]] = {}
+        # (endpoint id, revision, regeneration s, sync + refresh s) of
+        # every build, in completion order
+        self.builds: List[Tuple[int, int, float, float]] = []
+        self.endpoints = EndpointManager(
+            regenerate_fn=self._regenerate_endpoint)
+        self._regen_trigger = Trigger(
+            lambda reasons: self.endpoints.regenerate_all(
+                ",".join(reasons) or "policy-update"),
+            min_interval=0.01, name="policy-updates")
+        self._lpm_trigger = Trigger(
+            lambda _r: self.datapath.load_ipcache(
+                *self.ipcache.to_lpm_prefix_families()),
+            min_interval=0.01, name="ipcache-lpm")
+        self.ipcache.add_listener(
+            lambda *_a: self._lpm_trigger.trigger("ipcache"), replay=False)
+
+    @classmethod
+    def from_state(cls, state: PolicyState, **kwargs) -> "PolicyRun":
+        """A run with ``state``'s endpoints and peers created and its
+        rules imported from their JSON text; the builds may still be
+        running (``wait_for_policy_revision``)."""
+        run = cls(**kwargs)
+        for ep_id, ip, labels in state.endpoints:
+            run.endpoint_create(ep_id, ipv4=ip, labels=labels)
+        for ip, labels in state.peers:
+            run.add_peer(ip, labels)
+        run.policy_add(rules_from_json(state.rules_json))
+        return run
+
+    # -------------------------------------------------------- endpoints
+
+    def endpoint_create(self, endpoint_id: int, ipv4: str = "",
+                        labels: Sequence[str] = ()) -> Endpoint:
+        ep = Endpoint(endpoint_id, ipv4=ipv4)
+        ep.table_slot = self.table_mgr.attach(endpoint_id)
+        self.endpoints.insert(ep)
+        ep.update_labels(self.allocator, Labels.from_model(list(labels)))
+        self.datapath.set_endpoint_identity(ep.table_slot,
+                                            ep.security_identity)
+        if ipv4:
+            self.ipcache.upsert(ipv4, ep.security_identity,
+                                SOURCE_AGENT_LOCAL,
+                                metadata=f"endpoint:{endpoint_id}")
+        self.endpoints.queue_regeneration(endpoint_id)
+        return ep
+
+    def add_peer(self, ipv4: str, labels: Sequence[str]) -> Identity:
+        """A remote workload: its identity, and its IP in the ipcache."""
+        ident, _ = self.allocator.allocate(Labels.from_model(list(labels)))
+        self.ipcache.upsert(ipv4, ident.id, SOURCE_KVSTORE)
+        return ident
+
+    # ----------------------------------------------------------- policy
+
+    def policy_add(self, rules: Sequence[Rule]) -> int:
+        for r in rules:
+            r.sanitize()
+        with self._lock:
+            for r in rules:
+                prefixes = rule_cidr_prefixes(r)
+                self._retain_prefixes(prefixes)
+                self._rule_prefixes[id(r)] = prefixes
+            rev = self.repo.add_list(list(rules))
+        self._regen_trigger.trigger("policy-add")
+        return rev
+
+    def policy_delete(self, labels: LabelArray) -> Tuple[int, int]:
+        with self._lock:
+            doomed = self.repo.search(labels) if len(labels) else \
+                self.repo.rules
+            rev, deleted = self.repo.delete_by_labels(labels)
+            if deleted:
+                for r in doomed:
+                    self._release_prefixes(
+                        self._rule_prefixes.pop(id(r), None) or
+                        rule_cidr_prefixes(r))
+        if deleted:
+            self._regen_trigger.trigger("policy-delete")
+        return rev, deleted
+
+    def _retain_prefixes(self, prefixes: Sequence[str]) -> None:
+        for p in prefixes:
+            if p in self._cidr_idents:
+                ident, n = self._cidr_idents[p]
+                self._cidr_idents[p] = (ident, n + 1)
+            else:
+                allocated = allocate_cidr_identities(
+                    self.allocator, self.ipcache, [p])
+                self._cidr_idents[p] = (allocated[p], 1)
+
+    def _release_prefixes(self, prefixes: Sequence[str]) -> None:
+        for p in prefixes:
+            ident, n = self._cidr_idents.get(p, (None, 0))
+            if ident is None:
+                continue
+            if n <= 1:
+                release_cidr_identities(self.allocator, self.ipcache,
+                                        {p: ident})
+                del self._cidr_idents[p]
+            else:
+                self._cidr_idents[p] = (ident, n - 1)
+
+    def _regenerate_endpoint(self, ep: Endpoint) -> None:
+        cache = IdentityCache.snapshot(self.allocator)
+        res = ep.regenerate_policy(self.repo, cache, proxy=self.proxy)
+        ep.apply_regeneration(res)
+        t0 = time.perf_counter()
+        self.table_mgr.sync_endpoint(ep.id, ep.realized, res.revision)
+        self.datapath.refresh_policy(res.revision)
+        self.builds.append((ep.id, res.revision, res.total.seconds(),
+                            time.perf_counter() - t0))
+
+    # ------------------------------------------------------------ waits
+
+    def wait_for_policy_revision(self, revision: Optional[int] = None,
+                                 timeout: float = 60.0) -> bool:
+        """Block until every endpoint has applied ``revision`` (default:
+        the repository's), the build queue is idle and the engine's LPM
+        holds the ipcache's prefixes; False on timeout."""
+        rev = self.repo.revision if revision is None else revision
+        deadline = time.monotonic() + timeout
+
+        def done() -> bool:
+            return all(ep.policy_revision >= rev
+                       for ep in self.endpoints.endpoints()) and \
+                self.endpoints.wait_for_quiesce(0.05) and \
+                self.datapath.ipcache_prefixes == \
+                self.ipcache.to_lpm_prefix_families()[0]
+
+        while time.monotonic() < deadline:
+            if done():
+                return True
+            time.sleep(0.01)
+        return done()
+
+    def endpoint_states(self) -> Dict[int, Tuple[str, int]]:
+        """{endpoint id: (state, realized policy revision)}."""
+        return {ep.id: (ep.state, ep.policy_revision)
+                for ep in self.endpoints.endpoints()}
+
+    def shutdown(self) -> None:
+        """Stop the builder and trigger threads."""
+        self._regen_trigger.shutdown()
+        self._lpm_trigger.shutdown()
+        self.endpoints.shutdown()
+
+
+def rule_cidr_prefixes(rule: Rule) -> List[str]:
+    """Every CIDR prefix one rule names (``daemon.py:727-742``)."""
+    out: List[str] = []
+    for ing in rule.ingress:
+        out.extend(ing.from_cidr)
+        out.extend(c.cidr for c in ing.from_cidr_set)
+    for eg in rule.egress:
+        out.extend(eg.to_cidr)
+        out.extend(c.cidr for c in eg.to_cidr_set)
+    return sorted(set(out))
