@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's verdict and serving paths on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's verdict and serving paths, and its
+single-node agent, on one NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -165,22 +165,47 @@ script exits non-zero:
    sized state (100 rules), 10 single-rule adds and 10 deletes, each
    timed to the engine's ``on_revision_served`` and to the batch in
    which the flow it opens or closes flips.
-12. the kernels line (the dense kernel's launches on the config-2, L7,
-   stage and serving paths, 0, beside those of v4, v6 and the policy
-   path), the card's name and power limit from nvidia-smi, and a last
-   line ``{"ok": true, "device": {...}}``.
+12. the single-node agent (``phase_daemon``): ``Daemon`` on the card
+   with its REST API on port 0 and a state directory in the build
+   directory, the ``phase_policy`` state entered as a user enters it
+   (``PUT /endpoint/{id}`` for the 16 endpoints, the 24 peers as the
+   kvstore watchers enter them, the rules' JSON through ``PUT
+   /policy``).  ``daemon-start``: agent start and import-to-ready
+   seconds, every endpoint ready.  ``daemon-parity``: the 2**20-row batch
+   through the agent's ``process_packed`` against ``phase_policy``'s
+   ``PolicyRun`` on the same batch, both from an empty conntrack table
+   and zeroed counters, every output, CT field, per-entry counter and
+   map state (ports renamed by redirect id); ``POST /debug/drift-audit``
+   with 0 divergences; ``HostVerdictPath`` against the card's policy
+   tables on 4,096 rows.  ``daemon-timing``: ``process_packed``, 50
+   timed calls at 2**20, and the p50 of ``GET /healthz`` and ``GET
+   /policy``.  ``daemon-cli``: ``status`` and ``policy trace --replay``
+   through ``cli.main``, exit 0.  ``daemon-restart``: ``checkpoint_ct``,
+   shutdown, a new agent on the state directory: 16 endpoints and every
+   CT entry restored, and every row whose flow had an entry keeps its
+   verdict.  No hand-written kernel runs on this path: the dense
+   kernel's launch count, set to 0 before the phase, is read after it.
+13. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage, serving and agent paths, 0, beside those of v4, v6 and the
+   policy path), the card's name and power limit from nvidia-smi, and a
+   last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import ipaddress
 import json
 import multiprocessing
+import shutil
 import sys
+import tempfile
 import threading
 import time
+import urllib.request
 from collections import deque
 
 import numpy as np
@@ -193,6 +218,7 @@ from cilium_tpu_torch.analytics.decode import (quiesced_section,
                                                top_prefixes, top_scanners,
                                                top_talkers)
 from cilium_tpu_torch.analytics.oracle import oracle_analytics_step
+from cilium_tpu_torch.cli import main as cli_main
 from cilium_tpu_torch.compiler.bucket_tables import compile_states_bucketed
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, compile_lpm,
                                            oracle_lpm_u32, parse_prefixes)
@@ -200,6 +226,8 @@ from cilium_tpu_torch.compiler.policy_tables import (compile_endpoints,
                                                      oracle_verdict)
 from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
                                               oracle_match)
+from cilium_tpu_torch.daemon import Daemon
+from cilium_tpu_torch.daemon.rest import APIServer
 from cilium_tpu_torch.datapath import conntrack, engine, events, pipeline
 from cilium_tpu_torch.datapath.codes import (VERDICT_DROP, VERDICT_DROP_L7,
                                              WORLD_IDENTITY)
@@ -212,13 +240,14 @@ from cilium_tpu_torch.datapath.supervisor import DeviceSupervisor
 from cilium_tpu_torch.device import cuda_ms, host_buffer, nvidia_smi, probe
 from cilium_tpu_torch.hubble.aggregation import EVENT_BIAS
 from cilium_tpu_torch.identity import IdentityCache
+from cilium_tpu_torch.ipcache.ipcache import SOURCE_KVSTORE
 from cilium_tpu_torch.l7.dns import DNSPolicyEngine
 from cilium_tpu_torch.l7.fast import encode_payloads
 from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
                                       rule_to_combined_regex)
 from cilium_tpu_torch.l7.http import request_line as http_request_line
 from cilium_tpu_torch.l7.kafka import KafkaPolicyEngine
-from cilium_tpu_torch.labels import LabelArray
+from cilium_tpu_torch.labels import LabelArray, Labels
 from cilium_tpu_torch.native import PKT_HEADER_DTYPE
 from cilium_tpu_torch.observability import stages
 from cilium_tpu_torch.ops import dense_verdict as dv
@@ -238,6 +267,7 @@ from cilium_tpu_torch.threat.model import ThreatConfig, default_model
 from cilium_tpu_torch.threat.oracle import oracle_threat_step
 from cilium_tpu_torch.threat.trainer import ThreatTrainer
 from cilium_tpu_torch.utils.faultinject import DeviceFaultInjector
+from cilium_tpu_torch.utils.option import DaemonConfig
 from cilium_tpu_torch.verdict_service import (VerdictClient, VerdictService,
                                               _decode_wire_payloads,
                                               pack_wire_payloads)
@@ -3171,11 +3201,12 @@ def policy_propagation(dev) -> dict:
 
 
 def phase_policy(dev, pair_s: float = None,
-                 function_pair_s: float = None) -> int:
+                 function_pair_s: float = None, keep: list = None) -> int:
     """Rules to verdicts on the card; returns the dense kernel's launches
     on the path (the dense step over the rule-derived map states).  With
     the kernel's per-pair seconds (the ``sass`` phase), the kernel's
-    timing carries its bound."""
+    timing carries its bound.  With ``keep``, the card's ``PolicyRun`` is
+    appended to it instead of shut down (the caller shuts it down)."""
     t_phase = time.perf_counter()
     state = policy_state(*POLICY_STATE)
     remotes = policy_remotes(state)
@@ -3201,7 +3232,10 @@ def phase_policy(dev, pair_s: float = None,
                                  (pair_s, function_pair_s))
             twin_res = twin.get(timeout=POLICY_WAIT_S)
         finally:
-            run.shutdown()
+            if keep is None:
+                run.shutdown()
+            else:
+                keep.append(run)
         twin_s = time.perf_counter() - t_phase
         result["parity"]["twin"], result["parity"]["twin_ports_renamed"] = \
             policy_twin_mismatches(result.pop("card_outputs"), twin_res,
@@ -3404,6 +3438,250 @@ def policy_card(dev, run, state, remotes, packed, remote, pool, rev,
             "card_outputs": card, "map_states": policy_map_states(run),
             "redirects": {r.id: r.proxy_port for r in run.proxy.redirects()}}
 
+AGENT_STATE_ROOT = kernels.BUILD_DIR
+DAEMON_TIMED = 50
+DAEMON_REST_CALLS = 20
+DAEMON_HOST_SAMPLE = 4096
+
+
+def rest(url: str, method: str, path: str, body=None):
+    """(HTTP status, decoded JSON) of one request to the agent's API."""
+    data = None if body is None else (
+        body if isinstance(body, bytes) else json.dumps(body).encode())
+    req = urllib.request.Request(url + path, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=POLICY_WAIT_S) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def start_agent(dev, state_dir: str):
+    """(Daemon, APIServer on port 0, seconds to both up) on ``dev``, with
+    the conntrack geometry of ``phase_policy``'s run."""
+    t0 = time.perf_counter()
+    d = Daemon(config=DaemonConfig(state_dir=state_dir,
+                                   ct_slots=POLICY_CT_SLOTS), device=dev)
+    try:
+        srv = APIServer(d).start()
+    except BaseException:
+        d.shutdown()
+        raise
+    return d, srv, time.perf_counter() - t0
+
+
+def agent_settled(d, timeout: float) -> bool:
+    """Every endpoint at the repository's revision, the build queue idle
+    and the engine's LPM holding the ipcache's prefixes."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if d.wait_for_policy_revision(timeout=1.0) and \
+                d.datapath.ipcache_prefixes == \
+                d.ipcache.to_lpm_prefix_families()[0]:
+            return True
+    return False
+
+
+def host_path_mismatches(d, state, packed, identity) -> int:
+    """``HostVerdictPath`` (the C++ verdict caches) against the card's
+    live policy tables (``policy_replay``) on a sample of the batch's
+    rows, each with the identity the card resolved for it."""
+    col = {f: packed[PACKED_FIELDS.index(f)] for f in PACKED_FIELDS}
+    idx = np.linspace(0, packed.shape[1] - 1, DAEMON_HOST_SAMPLE).astype(int)
+    slots, ids = col["endpoint"][idx], identity[idx]
+    dports, protos = col["dport"][idx], col["proto"][idx]
+    dirs = col["direction"][idx]
+    card = np.array([r["verdict"] for r in d.datapath.policy_replay(
+        slots, ids, dports, protos, dirs)], np.int32)
+    bad = 0
+    for slot in np.unique(slots).tolist():
+        m = slots == slot
+        host = d.host_path.classify(state.endpoints[slot][0], ids[m],
+                                    dports[m], protos[m], dirs[m])
+        bad += int((host != card[m]).sum())
+    return bad
+
+
+def ct_established(outputs, packed) -> np.ndarray:
+    """[B] bool: the rows whose flow has an entry in the conntrack table
+    ``outputs`` holds (``policy_outputs``'s ``ct.*`` fields).  No service
+    is loaded, so a row's key is its own 5-tuple and direction
+    (``pipeline.full_datapath_step``'s ``CTBatch``).  A new flow that
+    loses both of the step's claim rounds gets no entry."""
+    col = {f: packed[PACKED_FIELDS.index(f)].astype(np.int64)
+           for f in PACKED_FIELDS}
+
+    def keys(*words):
+        arr = np.stack([np.asarray(w, np.int64).astype(np.uint32)
+                        for w in words], 1)
+        return np.ascontiguousarray(arr).view(
+            np.dtype((np.void, 16))).ravel()
+
+    live = outputs["ct.k3"][:-1] != 0
+    table = keys(*(outputs[f"ct.k{i}"][:-1][live] for i in range(4)))
+    rows = keys(col["saddr"], col["daddr"],
+                ((col["sport"] & 0xFFFF) << 16) | (col["dport"] & 0xFFFF),
+                ((col["proto"] & 0xFF) << 8) | ((col["direction"] & 1) << 1)
+                | 1)
+    return np.isin(rows, table)
+
+
+def phase_daemon(dev, run) -> int:
+    """The single-node agent on the card; returns the dense kernel's
+    launches on its path.  ``run`` is ``phase_policy``'s ``PolicyRun``:
+    its map states, redirects and engine are what the agent is held
+    against."""
+    t_phase = time.perf_counter()
+    state = policy_state(*POLICY_STATE)
+    remotes = policy_remotes(state)
+    packed, _ = policy_packets(state, remotes, POLICY_BATCH)
+    # the agent's state directory lives in the checkout's build directory
+    AGENT_STATE_ROOT.mkdir(parents=True, exist_ok=True)
+    state_dir = tempfile.mkdtemp(prefix="agent-state-",
+                                 dir=AGENT_STATE_ROOT)
+    dv.dense_verdict.launches = 0
+    d = srv = None
+    try:
+        d, srv, start_s = start_agent(dev, state_dir)
+        url = srv.base_url
+        t_import = time.perf_counter()
+        for ep_id, ip, labels in state.endpoints:
+            rest(url, "PUT", f"/endpoint/{ep_id}",
+                 {"ipv4": ip, "labels": list(labels)})
+        # remote workloads as the kvstore watchers enter them
+        for ip, labels in state.peers:
+            ident, _ = d.identity_allocator.allocate(
+                Labels.from_model(list(labels)))
+            d.ipcache.upsert(ip, ident.id, SOURCE_KVSTORE)
+        _, imported = rest(url, "PUT", "/policy", state.rules_json.encode())
+        rev = imported["revision"]
+        if not agent_settled(d, POLICY_WAIT_S):
+            raise AssertionError("daemon: builds did not finish")
+        ready_s = time.perf_counter() - t_import
+        ready = sum((ep.state, ep.policy_revision) == ("ready", rev)
+                    for ep in d.endpoints.endpoints())
+        emit("daemon-start", endpoints=len(state.endpoints),
+             endpoints_ready_at_revision=ready, revision=rev,
+             redirects=len(d.proxy),
+             identities=len(d.identity_allocator),
+             agent_start_s=start_s, import_to_ready_s=ready_s,
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # the same batch through the agent and phase_policy's run, at the
+        # current time (the ct-gc controller keeps every entry), both
+        # from an empty conntrack table and zeroed counters
+        now = int(time.time())
+        run.datapath.restore_ct_snapshots(*d.datapath.snapshot_ct())
+        zeroed = run.datapath.counters
+        zeroed.packets.zero_()
+        zeroed.bytes.zero_()
+        batch = torch.as_tensor(packed, device=dev)
+        want = policy_outputs(run, run.datapath.process_packed(batch,
+                                                               now=now))
+        got = policy_outputs(d, d.datapath.process_packed(batch, now=now))
+        parity, renamed = policy_twin_mismatches(
+            want, {"outputs": got,
+                   "redirects": {r.id: r.proxy_port
+                                 for r in d.proxy.redirects()},
+                   "states": policy_map_states(d)},
+            {r.id: r.proxy_port for r in run.proxy.redirects()},
+            policy_map_states(run))
+        _, audit = rest(url, "POST", "/debug/drift-audit")
+        if d.host_path is None:
+            raise AssertionError("daemon: the host fast path did not build")
+        host_bad = host_path_mismatches(d, state, packed, got["identity"])
+        emit("daemon-parity", rows=int(packed.shape[1]),
+             vs_policy_run=parity, ports_renamed=renamed,
+             allowed_share=float((got["verdict"] >= 0).mean()),
+             redirected_share=float((got["verdict"] > 0).mean()),
+             drift_audit={"status": audit["status"],
+                          "checked": audit["checked"],
+                          "sc_checked": audit["sc-checked"],
+                          "divergences": len(audit["divergences"])},
+             host_path_rows=DAEMON_HOST_SAMPLE,
+             host_path_mismatches=host_bad,
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # timing: process_packed over fresh batches, then REST round trips
+        batches = [torch.as_tensor(policy_packets(
+            state, remotes, POLICY_BATCH, seed=13 + k)[0], device=dev)
+            for k in range(POLICY_CYCLE)]
+        turn = iter(range(1 << 30))
+        serve_ms = cuda_ms(lambda: d.datapath.process_packed(
+            batches[next(turn) % POLICY_CYCLE], now=now), DAEMON_TIMED)
+        health, policy = [], []
+        for _ in range(DAEMON_REST_CALLS):
+            for path, out in (("/healthz", health), ("/policy", policy)):
+                t0 = time.perf_counter()
+                rest(url, "GET", path)
+                out.append(time.perf_counter() - t0)
+        emit("daemon-timing",
+             process_packed=timing(serve_ms, POLICY_BATCH),
+             healthz_ms={"p50": float(np.median(health)) * 1e3,
+                         "samples": len(health)},
+             get_policy_ms={"p50": float(np.median(policy)) * 1e3,
+                            "samples": len(policy)},
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # the CLI against the agent: status, and a replay trace of an
+        # allowed row through the live tables
+        col = {f: packed[PACKED_FIELDS.index(f)] for f in PACKED_FIELDS}
+        i = int(np.flatnonzero(got["verdict"] == 0)[0])
+        trace = ["policy", "trace", "--replay", "--endpoint",
+                 str(state.endpoints[int(col["endpoint"][i])][0]),
+                 "--identity", str(int(got["identity"][i])),
+                 "--dport", str(int(col["dport"][i])),
+                 "--proto", str(int(col["proto"][i])), "--direction",
+                 "egress" if col["direction"][i] else "ingress"]
+        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+            cli_rc = {"status": cli_main(["--api", url, "status"]),
+                      "policy trace": cli_main(["--api", url, *trace])}
+        emit("daemon-cli", exit_codes=cli_rc,
+             status_lines=len(cli_out.getvalue().splitlines()))
+
+        # restart: checkpoint, shut down, a new agent on the state dir
+        ct_before = d.datapath.ct_entries()
+        t0 = time.perf_counter()
+        if not d.checkpoint_ct():
+            raise AssertionError("daemon: checkpoint_ct failed")
+        checkpoint_s = time.perf_counter() - t0
+        srv.shutdown()
+        d.shutdown()
+        d = srv = None
+        t_restart = time.perf_counter()
+        d, srv, _ = start_agent(dev, state_dir)
+        restored = d.restore_endpoints()
+        ct_after = d.datapath.ct_entries()
+        again = d.datapath.process_packed(batch, now=now)[0].cpu().numpy()
+        restart_s = time.perf_counter() - t_restart
+        established = ct_established(got, packed)
+        kept = int((again[established] !=
+                    got["verdict"][established]).sum()) + \
+            int((got["verdict"][established] < 0).sum())
+        emit("daemon-restart", endpoints_restored=restored,
+             ct_entries_before=list(ct_before),
+             ct_entries_restored=list(ct_after),
+             established_rows=int(established.sum()),
+             established_mismatches=kept,
+             restart_to_serving_s=restart_s, checkpoint_ct_s=checkpoint_s,
+             name_power_limit=nvidia_smi("name,power.limit"))
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        if d is not None:
+            d.shutdown()
+        shutil.rmtree(state_dir, ignore_errors=True)
+    launches = dv.dense_verdict.launches
+    counts = list(parity.values()) + [
+        len(audit["divergences"]), host_bad, kept,
+        int(audit["status"] != "ok"), *cli_rc.values(),
+        int(ready != len(state.endpoints)),
+        int(restored != len(state.endpoints)),
+        int(tuple(ct_after) != tuple(ct_before))]
+    if any(counts):
+        raise AssertionError(f"daemon: {counts}")
+    emit("daemon", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": launches},
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3456,7 +3734,14 @@ def main() -> int:
     l7_launches = phase_l7(dev)
     stage_launches = phase_stages(dev, state4)
     serving_launches = phase_serving(dev, state4)
-    policy_launches = phase_policy(dev, pair_s, function_pair_s)
+    kept = []
+    try:
+        policy_launches = phase_policy(dev, pair_s, function_pair_s,
+                                       keep=kept)
+        daemon_launches = phase_daemon(dev, kept[0])
+    finally:
+        for run in kept:
+            run.shutdown()
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -3492,6 +3777,7 @@ def main() -> int:
         "stage_path_launches": stage_launches,
         "serving_path_launches": serving_launches,
         "policy_path_launches": policy_launches,
+        "daemon_path_launches": daemon_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -16,3 +16,5 @@ by ``kernels.py``.
 Entry points take ``device=``; the default is ``"cuda"`` and a missing
 card raises (``device.resolve_device``).  Everything runs eagerly.
 """
+
+__version__ = "0.1.0"

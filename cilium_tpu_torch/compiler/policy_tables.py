@@ -114,3 +114,36 @@ def oracle_verdict(state: PolicyMapState, identity: int, dport: int,
     if l4 is not None:
         return l4.proxy_port
     return VERDICT_DROP
+
+
+def oracle_provenance(state: PolicyMapState, identity: int, dport: int,
+                      proto: int, direction: int):
+    """Provenance-extended scalar oracle: (verdict, decision tier,
+    matched PolicyKey or None) with the same fallback chain as
+    oracle_verdict and the tier semantics of the device path
+    (datapath/verdict._policy_provenance) — an exact-stage hit whose
+    query has dport==0 and proto==0 IS the L3-only key and reports as
+    l3-allow.  The drift audit diffs the device replay against this."""
+    # imported lazily: the compiler layer does not pull the datapath
+    # package at import time (events itself is dependency-free)
+    from ..datapath.events import (TIER_DENY, TIER_L3_ALLOW,
+                                   TIER_L4_RULE, TIER_L7_REDIRECT)
+    exact_key = PolicyKey(identity=identity, dest_port=dport,
+                          nexthdr=proto, direction=direction)
+    exact = state.get(exact_key)
+    if exact is not None:
+        if exact.proxy_port > 0:
+            return exact.proxy_port, TIER_L7_REDIRECT, exact_key
+        tier = TIER_L3_ALLOW if (dport == 0 and proto == 0) \
+            else TIER_L4_RULE
+        return exact.proxy_port, tier, exact_key
+    l3_key = PolicyKey(identity=identity, direction=direction)
+    if state.get(l3_key) is not None:
+        return VERDICT_ALLOW, TIER_L3_ALLOW, l3_key
+    l4_key = PolicyKey(identity=0, dest_port=dport, nexthdr=proto,
+                       direction=direction)
+    l4 = state.get(l4_key)
+    if l4 is not None:
+        tier = TIER_L7_REDIRECT if l4.proxy_port > 0 else TIER_L4_RULE
+        return l4.proxy_port, tier, l4_key
+    return VERDICT_DROP, TIER_DENY, None

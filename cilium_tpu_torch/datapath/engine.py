@@ -13,7 +13,9 @@ a stage is off its tables and state are not built and the steps run as
 they did before it existed.  ``serving()`` wraps ``process_packed`` in
 the shared micro-batching lane (``datapath/serving.py``) under a
 ``DeviceSupervisor`` (``datapath/supervisor.py``); ``policy_replay``
-runs header batches through the live policy tensors.  Swap-on-regenerate:
+runs header batches through the live policy tensors, and
+``map_inventory`` / ``map_dump`` / ``map_pressure`` read the tables for
+the agent's ``/map`` routes and ``status()``.  Swap-on-regenerate:
 ``load_policy`` builds a new table generation while conntrack, counters
 and flows survive when the shapes allow (the analog of pinned BPF maps
 surviving an agent restart).  The steps run eagerly; nothing in them
@@ -40,12 +42,13 @@ from ..analytics.stage import (CTRL_COL, AnalyticsState, ctrl_row,
                                epoch_rows, make_analytics_state)
 from ..hubble.aggregation import FlowTable
 from ..observability.jitstats import jit_telemetry
+from ..observability.pressure import compute_pressure
 from ..observability.stages import record_stage
 from ..policy.mapstate import PolicyMapState
 from ..threat.stage import COL_WIN_TS, ThreatState, make_threat_state
 from ..utils.metrics import POLICY_VERDICTS
-from .conntrack import ConntrackTable
-from .events import tier_name
+from .conntrack import FIELDS as CT_FIELDS, ConntrackTable
+from .events import format_rule, tier_name
 from .icmp6 import echo_reply
 from .lb import CompiledLB6, LoadBalancer, Service6, compile_lb6
 from .pipeline import (DatapathTables, FullPacketBatch, FullPacketBatch6,
@@ -1125,6 +1128,127 @@ class Datapath:
                 "matched": decode(slot) if slot >= 0 else None,
                 "stages": stages})
         return out
+
+    def provenance_rule_of(self):
+        """String form of rule_decoder for the monitor and Hubble
+        surfaces ('' for unmatched slots)."""
+        decode = self.rule_decoder()
+
+        def rule_of(slot) -> str:
+            return format_rule(decode(slot))
+        return rule_of
+
+    # -- map surface (cilium bpf */list analogs) --------------------------
+
+    def map_pressure(self, warn_threshold: float = 0.9) -> Dict:
+        """Map-pressure report over the live device tables (updates the
+        map_pressure / map_entries gauges as a side effect)."""
+        return compute_pressure(self.map_inventory(), warn_threshold)
+
+    def lb6_service_list(self) -> List[Service6]:
+        """The v6 service registry, copied under the engine lock (the
+        threaded REST server must not iterate the live dict while an
+        upsert changes it)."""
+        with self._lock:
+            return list(self.lb6_services.values())
+
+    def map_inventory(self) -> Dict[str, Dict]:
+        """Per-map geometry and occupancy: what state lives on the
+        device now (cilium map list)."""
+        with self._lock:
+            out: Dict[str, Dict] = {}
+            if self._table_mgr is not None:
+                geom, _t = self._table_mgr.snapshot()
+                cap, slots, probe, gen = geom
+                out["policy"] = {"endpoints": cap, "slots": slots,
+                                 "max-probe": probe, "generation": gen,
+                                 "attached":
+                                 self._table_mgr.stats()["endpoints"]}
+            elif self.compiled_policy is not None:
+                out["policy"] = {
+                    "endpoints": self.compiled_policy.num_endpoints,
+                    "slots": self.compiled_policy.slots,
+                    "max-probe": self.compiled_policy.max_probe,
+                    "entries": self.compiled_policy.entry_count()}
+            out["ipcache"] = {"entries": len(self.ipcache_prefixes)}
+            out["ipcache6"] = {"entries": len(self.ipcache_prefixes6)}
+            for name, tbl in (("ct", self.ct), ("ct6", self.ct6)):
+                out[name] = {"slots": tbl.slots,
+                             "occupied": tbl.entry_count(),
+                             "max-probe": tbl.max_probe}
+            out["lb"] = {"services": len(self.lb)}
+            out["lb6"] = {"services": len(self.lb6_services)}
+            out["tunnel"] = {"entries": len(self.tunnel_prefixes)}
+            if self.flows is not None:
+                out["hubble-flows"] = self.flows.stats()
+            pf = self.prefilter.compiled
+            pf6 = self.prefilter.compiled6
+            out["prefilter"] = {
+                "v4-entries": pf.entry_count() if pf else 0,
+                "v6-entries": pf6.entry_count() if pf6 else 0}
+            return out
+
+    def map_dump(self, name: str, max_entries: int = 4096):
+        """Entries of one device map (cilium bpf ipcache/ct/tunnel/lb
+        list).  CT dumps decode the live device table, the state the
+        verdict path consults.  Raises KeyError for an unknown map."""
+        if name == "hubble-flows":
+            return self.flow_snapshot(max_entries)
+        # the steps update the CT in place: copy it on the card under
+        # the lock and read the copy to the host after releasing it, so
+        # the transfer and the decode never hold up process()
+        with self._lock:
+            if name == "ipcache":
+                return dict(sorted(self.ipcache_prefixes.items())
+                            [:max_entries])
+            if name == "ipcache6":
+                return dict(sorted(self.ipcache_prefixes6.items())
+                            [:max_entries])
+            if name == "tunnel":
+                return {cidr: int(np.uint32(ip & 0xFFFFFFFF))
+                        for cidr, ip in
+                        sorted(self.tunnel_prefixes.items())
+                        [:max_entries]}
+            if name in ("ct", "ct6"):
+                tbl = self.ct if name == "ct" else self.ct6
+                st = tbl.state[:, :tbl.slots].clone()
+            elif name == "lb":
+                svcs = self.lb.services()[:max_entries]
+            elif name == "lb6":
+                svcs6 = list(self.lb6_services.values())[:max_entries]
+            elif name == "prefilter":
+                cidrs, rev = self.prefilter.dump()
+                return {"cidrs": cidrs[:max_entries], "revision": rev}
+            else:
+                raise KeyError(name)
+        if name in ("ct", "ct6"):
+            host = st.cpu().numpy()
+            flds = dict(zip(CT_FIELDS, host))
+            k3 = flds["k3"]
+            idx = np.flatnonzero(k3)[:max_entries]
+            k0 = flds["k0"].astype(np.uint32)
+            k1 = flds["k1"].astype(np.uint32)
+            k2 = flds["k2"].astype(np.uint32)
+            exp = flds["expires"]
+            rn = flds["rev_nat"]
+            pp = flds["proxy_port"]
+            return [{
+                "saddr": int(k0[i]), "daddr": int(k1[i]),
+                "sport": int(k2[i] >> 16),
+                "dport": int(k2[i] & 0xFFFF),
+                "proto": int((k3[i] >> 8) & 0xFF),
+                "ingress": not bool((k3[i] >> 1) & 1),
+                "expires": int(exp[i]),
+                "rev-nat": int(rn[i]),
+                "proxy-port": int(pp[i])} for i in idx.tolist()]
+        if name == "lb":
+            return [{"vip": int(np.uint32(s.vip & 0xFFFFFFFF)),
+                     "port": s.port, "proto": s.proto,
+                     "backends": len(s.backends),
+                     "rev-nat": s.rev_nat_index} for s in svcs]
+        return [{"vip": list(s.vip), "port": s.port,
+                 "proto": s.proto, "backends": len(s.backends),
+                 "rev-nat": s.rev_nat_index} for s in svcs6]
 
     # -- conntrack surface ------------------------------------------------
 

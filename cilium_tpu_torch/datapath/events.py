@@ -98,3 +98,23 @@ TIER_NAMES = {
 def tier_name(code: int) -> str:
     """Human name for a provenance decision-tier code."""
     return TIER_NAMES.get(code, f"tier {code}")
+
+
+def format_rule(decoded) -> str:
+    """Compact one-line form of a decoded policymap entry (the label
+    value the provenance metrics and monitor samples carry); '' for
+    None (no entry decided)."""
+    if decoded is None:
+        return ""
+    direction = "ingress" if decoded["direction"] == 0 else "egress"
+    s = (f"identity={decoded['identity']},dport={decoded['dport']},"
+         f"proto={decoded['proto']},{direction}")
+    if decoded.get("proxy-port"):
+        s += f",proxy={decoded['proxy-port']}"
+    return s
+
+
+def format_denied_key(identity: int, dport: int, proto: int) -> str:
+    """The queried tuple a DENY verdict failed to match — the 'rule
+    key' drops aggregate under (no compiled entry decided them)."""
+    return f"deny:identity={identity},dport={dport},proto={proto}"

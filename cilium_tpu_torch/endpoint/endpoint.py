@@ -6,18 +6,18 @@ SetStateLocked transition rules), pkg/endpoint/policy.go
 pkg/endpoint/bpf.go (regenerateBPF :467, syncPolicyMap :607,
 writeHeaderfile :88 — here a JSON checkpoint instead of a C header).
 
-Copy of ``cilium_tpu/endpoint/endpoint.py`` without the checkpoint
-(``checkpoint``, ``write_checkpoint`` and ``restore``, with the
-checkpoint migration they use), which waits for the daemon's endpoint
-restore.
+A whole copy of ``cilium_tpu/endpoint/endpoint.py``; its checkpoint
+JSON is byte-compatible with the reference's.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import identity as idpkg
 from ..labels import LabelArray, Labels
@@ -266,6 +266,74 @@ class Endpoint:
         with self._lock:
             self.realized = PolicyMapState(self.desired)
             self.policy_revision = result.revision
+
+    # -------------------------------------------------------- checkpoint
+
+    def checkpoint(self) -> Dict:
+        """Serializable endpoint state (the writeHeaderfile analog:
+        everything needed to restore the endpoint after agent restart,
+        daemon/state.go)."""
+        from ..migrate import CHECKPOINT_VERSION
+        with self._lock:
+            return {
+                "version": CHECKPOINT_VERSION,
+                "family": 4,
+                "id": self.id,
+                "ipv4": self.ipv4,
+                "container_name": self.container_name,
+                "labels": [str(l) for l in self.labels.to_array()],
+                "state": self.state,
+                "policy_revision": self.policy_revision,
+                "identity": self.security_identity,
+                "realized": [
+                    {"identity": k.identity, "dest_port": k.dest_port,
+                     "nexthdr": k.nexthdr, "direction": k.direction,
+                     "proxy_port": v.proxy_port}
+                    for k, v in sorted(
+                        self.realized.items(),
+                        key=lambda kv: (kv[0].identity, kv[0].dest_port,
+                                        kv[0].nexthdr, kv[0].direction))],
+                "options": self.opts.dump(),
+            }
+
+    def write_checkpoint(self, state_dir: str) -> str:
+        os.makedirs(state_dir, exist_ok=True)
+        path = os.path.join(state_dir, f"ep_{self.id}.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self.checkpoint(), f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def restore(cls, snapshot: Dict,
+                opts: Optional[IntOptions] = None) -> "Endpoint":
+        """Rebuild an endpoint from a checkpoint (daemon/state.go
+        restoreOldEndpoints). Restored endpoints start in RESTORING and
+        need a regeneration to become READY with fresh policy.  Old
+        checkpoint versions are migrated forward first
+        (cilium-map-migrate analog, migrate.py)."""
+        from ..migrate import migrate_snapshot
+        snapshot = migrate_snapshot(snapshot)
+        ep = cls(endpoint_id=snapshot["id"], ipv4=snapshot.get("ipv4", ""),
+                 container_name=snapshot.get("container_name", ""),
+                 labels=Labels.from_model(snapshot.get("labels", [])),
+                 opts=opts)
+        ep.state = EndpointState.RESTORING
+        ep.policy_revision = snapshot.get("policy_revision", 0)
+        for e in snapshot.get("realized", []):
+            ep.realized[PolicyKey(
+                identity=e["identity"], dest_port=e["dest_port"],
+                nexthdr=e["nexthdr"], direction=e["direction"])] = \
+                PolicyMapStateEntry(proxy_port=e.get("proxy_port", 0))
+        for name, value in (snapshot.get("options") or {}).items():
+            # per-key so one stale option name from an older version
+            # can't discard the rest of the checkpointed settings
+            try:
+                ep.opts.apply_validated({name: value})
+            except (KeyError, ValueError):
+                pass
+        return ep
 
     def model(self) -> Dict:
         """REST model (api/v1 Endpoint)."""

@@ -11,10 +11,12 @@ Bound here:
   (pkg/alignchecker analog);
 - ``PacketRing``: the lock-free SPSC packet-header ring whose drain
   fills struct-of-arrays int32 arrays, the verdict service's ingest
-  tier.
+  tier;
+- ``VerdictCache``: the exact-match (key_a, key_b) -> verdict cache with
+  the whole three-stage ``__policy_can_access`` fallback in one call,
+  under the host fast path (``native/fastpath.HostVerdictPath``).
 
-The source's ``VerdictCache`` and ``ScalarDFA`` functions are compiled
-but not bound.
+The source's ``ScalarDFA`` functions are compiled but not bound.
 """
 
 from __future__ import annotations
@@ -96,6 +98,29 @@ def load() -> ctypes.CDLL:
         lib.ring_pop_batch_soa.restype = u64
         lib.ring_pop_batch_soa.argtypes = [vp, u64] + \
             [ctypes.POINTER(i32)] * len(_SOA_FIELDS)
+        p, u8 = ctypes.POINTER, ctypes.c_uint8
+        lib.vc_create.restype = vp
+        lib.vc_create.argtypes = [u64]
+        lib.vc_destroy.restype = None
+        lib.vc_destroy.argtypes = [vp]
+        lib.vc_update.restype = ctypes.c_int
+        lib.vc_update.argtypes = [vp, u32, u32, i32]
+        lib.vc_update_batch.restype = u64
+        lib.vc_update_batch.argtypes = [vp, p(u32), p(u32), p(i32), u64]
+        lib.vc_delete.restype = ctypes.c_int
+        lib.vc_delete.argtypes = [vp, u32, u32]
+        lib.vc_lookup_batch.restype = u64
+        lib.vc_lookup_batch.argtypes = [vp, p(u32), p(u32), u64,
+                                        p(i32), p(u8)]
+        lib.vc_classify_batch.restype = u64
+        lib.vc_classify_batch.argtypes = [vp, p(u32), p(i32), p(i32),
+                                          p(i32), u64, p(i32)]
+        lib.vc_len.restype = u64
+        lib.vc_len.argtypes = [vp]
+        lib.vc_slots.restype = u64
+        lib.vc_slots.argtypes = [vp]
+        lib.vc_flush.restype = None
+        lib.vc_flush.argtypes = [vp]
         _lib = lib
         return lib
 
@@ -167,6 +192,92 @@ class PacketRing:
     def close(self) -> None:
         if self._h:
             self._lib.ring_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+class VerdictCache:
+    """C++ exact-match verdict cache (host fast path)."""
+
+    def __init__(self, slots: int = 1 << 14):
+        self._lib = load()
+        self._h = self._lib.vc_create(slots)
+        if not self._h:
+            raise MemoryError("vc_create failed")
+
+    def update(self, key_a: int, key_b: int, value: int) -> bool:
+        return bool(self._lib.vc_update(
+            self._h, key_a & 0xFFFFFFFF, key_b & 0xFFFFFFFF, value))
+
+    def update_batch(self, key_a: np.ndarray, key_b: np.ndarray,
+                     values: np.ndarray) -> int:
+        """Bulk upsert; returns records applied (kb==0 rows skipped)."""
+        ka = np.ascontiguousarray(key_a, dtype=np.uint32)
+        kb = np.ascontiguousarray(key_b, dtype=np.uint32)
+        vals = np.ascontiguousarray(values, dtype=np.int32)
+        return self._lib.vc_update_batch(
+            self._h, ka.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            kb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(ka))
+
+    def delete(self, key_a: int, key_b: int) -> bool:
+        return bool(self._lib.vc_delete(
+            self._h, key_a & 0xFFFFFFFF, key_b & 0xFFFFFFFF))
+
+    def lookup_batch(self, key_a: np.ndarray, key_b: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """(values int32[n], found bool[n]) for uint32 key arrays."""
+        ka = np.ascontiguousarray(key_a, dtype=np.uint32)
+        kb = np.ascontiguousarray(key_b, dtype=np.uint32)
+        n = len(ka)
+        values = np.empty(n, np.int32)
+        found = np.empty(n, np.uint8)
+        self._lib.vc_lookup_batch(
+            self._h, ka.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            kb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)), n,
+            values.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            found.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        return values, found.astype(bool)
+
+    def classify_batch(self, identity: np.ndarray, dport: np.ndarray,
+                       proto: np.ndarray, direction: np.ndarray
+                       ) -> np.ndarray:
+        """Full 3-stage __policy_can_access over a batch in one native
+        call (bpf/lib/policy.h:46 semantics; -1 drop, 0 allow, >0
+        proxy port).  The latency path: no per-stage Python round
+        trips."""
+        ident = np.ascontiguousarray(identity, dtype=np.uint32)
+        dpt = np.ascontiguousarray(dport, dtype=np.int32)
+        pro = np.ascontiguousarray(proto, dtype=np.int32)
+        dirn = np.ascontiguousarray(direction, dtype=np.int32)
+        n = len(ident)
+        out = np.empty(n, np.int32)
+        self._lib.vc_classify_batch(
+            self._h, ident.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            dpt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            pro.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            dirn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return out
+
+    def __len__(self) -> int:
+        return self._lib.vc_len(self._h)
+
+    @property
+    def slots(self) -> int:
+        return self._lib.vc_slots(self._h)
+
+    def flush(self) -> None:
+        self._lib.vc_flush(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.vc_destroy(self._h)
             self._h = None
 
     def __del__(self):

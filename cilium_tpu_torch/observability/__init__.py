@@ -1,14 +1,38 @@
-"""Runtime self-telemetry of the serving tier.
+"""Runtime self-telemetry: the agent watching itself.
 
-Copies of the ``cilium_tpu/observability`` modules the serving path
-writes to:
+Copies of the ``cilium_tpu/observability`` modules:
 
-- ``stages``   — host-timed pipeline stage slices and blocking
-                 boundaries (``pipeline_report()``);
-- ``slo``      — the serving SLO tier: per-lane latency objectives,
-                 burn rates and queue-depth samples;
-- ``events``   — the incident flight recorder of supervisor and
-                 overload transitions;
-- ``jitstats`` — first-call-per-geometry accounting of the engine's
-                 entry points.
+- ``tracer``      — bounded in-memory span tracing with explicit context
+                    propagation, served at /debug/traces;
+- ``propagation`` — policy-propagation latency: every revision's path
+                    import -> compile -> device apply -> first verdict;
+- ``jitstats``    — first-call-per-geometry accounting of the engine's
+                    entry points;
+- ``stages``      — host-timed pipeline stage slices and blocking
+                    boundaries (``pipeline_report()``);
+- ``pressure``    — map-pressure gauges and warning thresholds for every
+                    device table;
+- ``events``      — the incident flight recorder of degraded-condition
+                    transitions, served at /debug/events;
+- ``slo``         — the serving SLO tier: per-lane latency objectives,
+                    burn rates and queue-depth samples.
 """
+
+from .tracer import Span, SpanContext, Tracer, tracer
+from .propagation import (POLICY_IMPLEMENTATION_DELAY,
+                          PolicyPropagationTracker)
+from .jitstats import JitTelemetry, jit_telemetry
+from .stages import PIPELINE_STAGE_SECONDS, pipeline_report, record_stage
+from .pressure import MAP_PRESSURE, compute_pressure
+from .events import EVENT_TYPES, FlightEvent, FlightRecorder, recorder
+from .slo import SLOTracker, slo_tracker
+
+__all__ = [
+    "Span", "SpanContext", "Tracer", "tracer",
+    "POLICY_IMPLEMENTATION_DELAY", "PolicyPropagationTracker",
+    "JitTelemetry", "jit_telemetry",
+    "PIPELINE_STAGE_SECONDS", "pipeline_report", "record_stage",
+    "MAP_PRESSURE", "compute_pressure",
+    "EVENT_TYPES", "FlightEvent", "FlightRecorder", "recorder",
+    "SLOTracker", "slo_tracker",
+]

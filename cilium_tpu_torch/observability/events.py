@@ -3,7 +3,10 @@ state-transition events.
 
 Copy of ``cilium_tpu/observability/events.py`` with the event types of
 the serving tier (supervisor mode flips, breaker trips, rebuilds,
-recoveries and overload watermark crossings).  Every transition lands
+recoveries and overload watermark crossings) and of the agent (drift
+audits, failing controllers, map pressure, threat mode and model pushes,
+traffic analytics); the kvstore's wait for the kvstore backends, and the
+``DEGRADED_SIGNALS`` lint map with them.  Every transition lands
 as one event stamped with a monotonic sequence number, wall time and
 the owning shard, so an incident replays in order.  ``record()`` is a
 lock, a list append and one counter increment; emitters sit on
@@ -42,6 +45,13 @@ EVENT_DATAPLANE_FAIL_STATIC = "dataplane-fail-static"
 EVENT_DATAPLANE_REBUILD = "dataplane-rebuild"
 EVENT_DATAPLANE_RECOVERED = "dataplane-recovered"
 EVENT_SERVING_OVERLOAD = "serving-overload"
+EVENT_DRIFT_AUDIT = "drift-audit"
+EVENT_CONTROLLER_FAILING = "controller-failing"
+EVENT_MAP_PRESSURE = "map-pressure-warning"
+EVENT_THREAT_MODE = "threat-mode"
+EVENT_THREAT_MODEL = "threat-model-push"
+EVENT_TRAFFIC_HEAVY_HITTER = "traffic-heavy-hitter"
+EVENT_TRAFFIC_SCAN_SUSPECT = "traffic-scan-suspect"
 
 EVENT_TYPES: Dict[str, str] = {
     EVENT_DATAPLANE_TRIP:
@@ -62,8 +72,32 @@ EVENT_TYPES: Dict[str, str] = {
     EVENT_SERVING_OVERLOAD:
         "a serving lane crossed its admission watermark pair (attrs: "
         "state on/off, pending weight)",
+    EVENT_DRIFT_AUDIT:
+        "a drift-audit sweep changed the compiler-correctness verdict "
+        "or found divergences (attrs: status, divergences)",
+    EVENT_CONTROLLER_FAILING:
+        "a controller crossed the consecutive-failure threshold "
+        "behind the controller-health degraded signal",
+    EVENT_MAP_PRESSURE:
+        "a fixed-capacity device table crossed its pressure warn "
+        "threshold (attrs: map, occupancy)",
+    EVENT_THREAT_MODE:
+        "the inline threat-scoring plane changed enforcement mode "
+        "(attrs: mode shadow/enforce/off — an enforce flip means a "
+        "model can now drop/rate-limit/redirect allowed traffic)",
+    EVENT_THREAT_MODEL:
+        "a threat-model weight push hot-swapped through the "
+        "delta-apply path (attrs: generation, repacked)",
+    EVENT_TRAFFIC_HEAVY_HITTER:
+        "an identity crossed the heavy-hitter byte-share threshold in "
+        "a decoded analytics epoch (attrs: identity, share, bytes) — "
+        "transition-edged per identity, so the timeline orders the "
+        "hitter next to the overload/threat events it explains",
+    EVENT_TRAFFIC_SCAN_SUSPECT:
+        "the analytics scan view flagged an identity probing many "
+        "distinct destination ports in one epoch (attrs: identity, "
+        "ports, packets)",
 }
-
 
 @dataclass(frozen=True)
 class FlightEvent:
@@ -75,13 +109,26 @@ class FlightEvent:
     type: str                 # EVENT_TYPES key
     detail: str = ""
     shard: Optional[int] = None
+    trace_id: str = ""
     attrs: Dict = field(default_factory=dict)
 
     def to_dict(self) -> Dict:
         return {"seq": self.seq, "timestamp": self.timestamp,
                 "monotonic": self.monotonic, "type": self.type,
                 "detail": self.detail, "shard": self.shard,
-                "attrs": dict(self.attrs)}
+                "trace-id": self.trace_id, "attrs": dict(self.attrs)}
+
+    def describe(self) -> str:
+        where = f"[shard {self.shard}] " if self.shard is not None \
+            else ""
+        attrs = " ".join(f"{k}={v}" for k, v in
+                         sorted(self.attrs.items()))
+        out = f"{where}{self.type}"
+        if self.detail:
+            out += f": {self.detail}"
+        if attrs:
+            out += f" ({attrs})"
+        return out
 
 
 class FlightRecorder:
@@ -103,15 +150,24 @@ class FlightRecorder:
                **attrs) -> FlightEvent:
         """Ring one transition event.  ``event_type`` must be declared
         in EVENT_TYPES — an undeclared type is a programming error, not
-        an event."""
+        an event.  The current tracer span's trace id (if any) rides
+        along so an incident timeline joins the span-trace surface."""
         if event_type not in EVENT_TYPES:
             raise ValueError(f"undeclared flight-recorder event type "
                              f"{event_type!r} — add it to EVENT_TYPES")
+        trace_id = ""
+        try:
+            from .tracer import tracer
+            cur = tracer.current()
+            if cur is not None:
+                trace_id = cur.trace_id
+        except Exception:  # noqa: BLE001 — recording must never fail
+            pass           # because tracing is mid-teardown
         with self._mu:
             ev = FlightEvent(
                 seq=self._next_seq, timestamp=time.time(),
                 monotonic=time.monotonic(), type=event_type,
-                detail=detail, shard=shard,
+                detail=detail, shard=shard, trace_id=trace_id,
                 attrs=dict(attrs))
             self._next_seq += 1
             self._ring.append(ev)
@@ -147,6 +203,12 @@ class FlightRecorder:
                and (event_type is None or e.type == event_type)
                and (shard is None or e.shard == shard)]
         return out[:limit] if limit else out
+
+    def timeline(self, since: int = 0) -> List[str]:
+        """Rendered one-line-per-event view (oldest first)."""
+        return [f"#{e.seq} "
+                f"{time.strftime('%H:%M:%S', time.localtime(e.timestamp))}"
+                f" {e.describe()}" for e in self.events(since, limit=0)]
 
     def stats(self) -> Dict:
         with self._mu:

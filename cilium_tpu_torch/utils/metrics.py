@@ -2,10 +2,12 @@
 
 Copy of ``cilium_tpu/utils/metrics.py``'s registry (counters, gauges,
 histograms, text exposition) with only the series the port writes: the
-endpoint build queue's, the verdict outcomes and the dataplane
-supervision series.  The
-serving, SLO, stage and flight-recorder series are registered by their
-own modules.
+endpoint build queue's, the daemon's policy and identity gauges, the
+verdict outcomes and their provenance, the drift audit, the dataplane
+supervision series, the controllers', Hubble's and the optional
+stages' (threat, analytics, L7 fast).  The kvstore, sharded-dataplane
+and federation series wait for their modules.  The serving, SLO, stage
+and flight-recorder series are registered by their own modules.
 """
 
 from __future__ import annotations
@@ -243,8 +245,34 @@ ENDPOINT_REGENERATION_TIME = registry.histogram(
     "endpoint_regeneration_seconds",
     "Endpoint regeneration time")
 
+ENDPOINT_STATE_COUNT = registry.gauge(
+    "endpoint_state", "Count of all endpoints by state")
+POLICY_COUNT = registry.gauge(
+    "policy_count", "Number of policy rules loaded")
+POLICY_REVISION = registry.gauge(
+    "policy_max_revision", "Highest policy revision number in the agent")
+POLICY_REGENERATION_COUNT = registry.counter(
+    "policy_regeneration_total", "Count of policy regenerations")
+POLICY_IMPORT_ERRORS = registry.counter(
+    "policy_import_errors", "Count of failed policy imports")
 POLICY_VERDICTS = registry.counter(
     "policy_verdicts_total", "Datapath verdicts by outcome")
+# Verdict provenance series (datapath/events.py TIER_*): which stage
+# of the compiled pipeline decided, which compiled entries are doing
+# the denying, and the drift audit's correctness oracle.
+POLICY_VERDICT_TIERS = registry.counter(
+    "policy_verdicts_by_tier_total",
+    "Datapath verdicts by provenance decision tier")
+POLICY_RULE_DROPS = registry.counter(
+    "policy_rule_drops_total",
+    "Dropped packets by denied policy key (verdict provenance)")
+POLICY_DRIFT = registry.counter(
+    "policy_drift_total",
+    "Drift-audit divergences between the compiled device tables and "
+    "the host policy oracle")
+POLICY_DRIFT_AUDIT_RUNS = registry.counter(
+    "policy_drift_audit_runs_total",
+    "Completed drift-audit sweeps by result")
 # Dataplane supervision (datapath/supervisor.py): the serving lane's
 # overload / device-fault / fail-static / recovery accounting.
 DATAPLANE_OVERLOADED = registry.gauge(
@@ -265,3 +293,89 @@ DATAPLANE_FAIL_STATIC = registry.counter(
     "dataplane_fail_static_verdicts_total",
     "Verdicts served from the host fail-static oracle while the "
     "device lane is degraded")
+PROXY_REDIRECTS = registry.gauge(
+    "proxy_redirects", "Number of active proxy redirects")
+# On-device L7 fast verdicts (datapath/pipeline.py fast-verdict stage
+# + l7/fast.py): connections decided inline by the fused DFA instead
+# of a proxy round-trip, by protocol and outcome (allow / deny).
+L7_FAST_VERDICTS = registry.counter(
+    "l7_fast_verdicts_total",
+    "L7 requests decided inline by the on-device fast-verdict stage "
+    "(proxy bypassed), by protocol and outcome")
+# Inline threat scoring (threat/ + the fused scoring stage in
+# datapath/pipeline.py): per-packet anomaly verdict accounting, the
+# score distribution, and the live model generation.
+THREAT_VERDICTS = registry.counter(
+    "threat_verdicts_total",
+    "Packets scored by the inline threat stage, by outcome (scored = "
+    "no override incl. every shadow-mode packet; rate-limited / "
+    "redirected / dropped = enforce-mode overrides)")
+THREAT_SCORES = registry.histogram(
+    "threat_score",
+    "Distribution of inline per-packet threat scores (0..255)",
+    buckets=(8, 16, 32, 64, 96, 128, 160, 192, 224, 256))
+THREAT_MODEL_GENERATION = registry.gauge(
+    "threat_model_generation",
+    "Generation of the threat-scoring model currently serving "
+    "(bumped on every weight hot-swap)")
+DROP_COUNT = registry.counter(
+    "drop_count_total", "Dropped packets by reason")
+FORWARD_COUNT = registry.counter(
+    "forward_count_total", "Forwarded packets")
+IDENTITY_COUNT = registry.gauge(
+    "identity_count", "Number of security identities allocated")
+# Controller health (utils/controller.py): per-run outcome accounting
+# behind the top-level controller-health degraded signal in status().
+CONTROLLER_RUNS = registry.counter(
+    "controller_runs_total",
+    "Controller reconcile runs by controller name and outcome")
+
+# Hubble flow-observability series (pkg/hubble/metrics analog): flow
+# throughput, drops by reason x identity pair, L7 response-code
+# distributions, and relay federation health.
+HUBBLE_FLOWS_PROCESSED = registry.counter(
+    "hubble_flows_processed_total",
+    "Flow records processed by the observer")
+HUBBLE_FLOWS_LOST = registry.counter(
+    "hubble_lost_events_total",
+    "Flow events lost (ring eviction or device table exhaustion)")
+HUBBLE_DROPS = registry.counter(
+    "hubble_drop_total",
+    "Dropped-flow records by reason and identity pair")
+HUBBLE_HTTP_RESPONSES = registry.counter(
+    "hubble_http_responses_total",
+    "HTTP responses observed at the proxy, by status code and method")
+HUBBLE_DNS_RESPONSES = registry.counter(
+    "hubble_dns_responses_total",
+    "DNS responses observed, by rcode")
+HUBBLE_RELAY_PEERS = registry.gauge(
+    "hubble_relay_peers", "Registered relay peers by state")
+HUBBLE_RELAY_FAILURES = registry.counter(
+    "hubble_relay_peer_failures_total",
+    "Relay peer fetch failures by peer and kind")
+HUBBLE_RELAY_SECONDS = registry.histogram(
+    "hubble_relay_peer_seconds",
+    "Relay per-peer get_flows fan-out latency")
+
+# Device-resident traffic-analytics series (analytics/ + the fused
+# sketch stage in datapath/pipeline.py): heavy-hitter byte shares
+# decoded from the quiesced sketch epoch, the drain/query accounting
+# of the merged mesh-wide answer, and the scan view's suspect count.
+ANALYTICS_TOP_BYTES = registry.gauge(
+    "analytics_top_bytes",
+    "Bytes attributed to a top-K heavy-hitter identity in the last "
+    "decoded analytics epoch, by identity (cardinality capped at the "
+    "drain controller's K — evicted identities drop from the series)")
+ANALYTICS_DRAINS = registry.counter(
+    "analytics_drains_total",
+    "Analytics epoch drains (swap + decode of the quiesced sketch "
+    "sections), by result (ok = every shard readable, partial = at "
+    "least one shard breaker-open or unreadable)")
+ANALYTICS_QUERIES = registry.counter(
+    "analytics_queries_total",
+    "Merged mesh-wide analytics top-K queries served, by view "
+    "(talkers / scanners / spreaders) and result (ok / partial)")
+ANALYTICS_SCAN_SUSPECTS = registry.gauge(
+    "analytics_scan_suspects",
+    "Identities the analytics scan view flagged above the "
+    "distinct-destination-port threshold in the last decoded epoch")

@@ -1,8 +1,7 @@
-"""Configuration: the runtime-mutable option maps.
+"""Configuration: static daemon config + runtime-mutable option maps.
 
-Copy of the option maps of ``cilium_tpu/utils/option.py``: the option
-specs, ``IntOptions`` and the daemon/endpoint option library.  The
-static ``DaemonConfig`` and ``parse_option_value`` wait for the daemon.
+A whole copy of ``cilium_tpu/utils/option.py``; the defaults are the
+reference's.
 
 Reference: pkg/option — ``DaemonConfig`` (flags bound in
 daemon/main.go:169-343) plus mutable ``IntOptions`` maps with a spec
@@ -179,3 +178,194 @@ class IntOptions:
         daemon's, then diverge)."""
         with self._lock:
             return IntOptions(self.library, dict(self._opts))
+
+
+def parse_option_value(value) -> int:
+    """User input -> option int (option.go NormalizeBool)."""
+    if isinstance(value, bool):
+        return OPTION_ENABLED if value else OPTION_DISABLED
+    if isinstance(value, int):
+        return value
+    s = str(value).strip().lower()
+    if s in ("true", "on", "enable", "enabled", "1"):
+        return OPTION_ENABLED
+    if s in ("false", "off", "disable", "disabled", "0"):
+        return OPTION_DISABLED
+    raise ValueError(f"invalid option value {value!r}")
+
+
+@dataclass
+class DaemonConfig:
+    """Static (start-time) configuration (pkg/option/config.go
+    DaemonConfig; flag binding daemon/main.go:169-343)."""
+
+    cluster_name: str = "default"
+    cluster_id: int = 0
+    state_dir: str = "/var/run/cilium_tpu"
+    # node pod CIDRs served by the daemon's host-scope IPAM
+    # (reference: daemon/ipam.go AllocateIP + pkg/ipam)
+    ipv4_range: str = "10.200.0.0/16"
+    ipv6_range: str = "f00d::/96"
+    device_count: int = 1
+    tunnel: str = "vxlan"              # vxlan | geneve | disabled
+    enable_ipv4: bool = True
+    enable_ipv6: bool = True
+    enable_policy: str = "default"     # default | always | never
+    allow_localhost: str = "auto"      # auto | always | policy
+    proxy_port_min: int = 10000        # reference: daemon.go:1326
+    proxy_port_max: int = 20000
+    ct_slots: int = 1 << 16
+    # periodic CT snapshot interval (0 disables).  The reference's CT
+    # lives in pinned bpffs maps that survive agent death for free
+    # (SURVEY §5 checkpoint/resume); a periodic snapshot is the analog
+    # that lets a SIGKILLed agent restart with its established flows.
+    ct_checkpoint_interval_s: float = 10.0
+    monitor_queue_size: int = 4096
+    # Hubble flow observability (hubble/): the host flow ring, and the
+    # on-device aggregation table fused into the datapath steps
+    # (0 slots = host ring only, no device table)
+    enable_hubble: bool = True
+    hubble_ring_capacity: int = 8192
+    hubble_flow_slots: int = 1 << 12
+    hubble_flow_probe: int = 8
+    # relay fan-out deadline (a dead peer costs at most this per query)
+    hubble_relay_deadline_s: float = 2.0
+    # sharded daemons (dataplane_shards >= 2): the federated observer
+    # (hubble/federation.py) drains every shard's device flow table
+    # into its per-shard flow store on this cadence (0 disables the
+    # drain controller; drain() stays callable on demand)
+    hubble_drain_interval_s: float = 1.0
+    # serving SLO tier (observability/slo.py): the latency objective a
+    # resolved ticket is judged against when its lane has no admission
+    # deadline, and the error-budget fraction the burn rate divides by
+    # (0.001 = a 99.9% latency SLO)
+    serving_slo_objective_s: float = 0.050
+    serving_slo_error_budget: float = 0.001
+    # runtime self-telemetry (observability/): span tracing +
+    # stage/jit/verdict accounting.  Disabling drops the datapath's
+    # telemetry cost to ~0 (the tracing-overhead bench's off leg).
+    enable_tracing: bool = True
+    trace_capacity: int = 4096
+    # map-pressure warning threshold (pkg/metrics BPFMapPressure
+    # analog): tables at or above this fill fraction surface warnings
+    # in status() / `cilium-tpu status --verbose`
+    map_pressure_warn: float = 0.9
+    # verdict provenance (datapath/verdict.py): per-packet matched-rule
+    # attribution + decision tiers emitted by the jitted steps.  Off by
+    # default — the provenance-overhead bench's disabled leg is the
+    # baseline program; replay (`policy trace --replay`) and the drift
+    # audit work either way (they compile their own read-only step)
+    enable_provenance: bool = False
+    # periodic drift audit: replay sampled identity/port tuples through
+    # the LIVE compiled device tables and diff against the host policy
+    # oracles (compute_desired_policy_map_state + SearchContext).
+    # Divergence increments policy_drift_total and fails status()
+    # loudly.  0 disables the controller (run_drift_audit stays
+    # callable on demand).
+    drift_audit_interval_s: float = 30.0
+    drift_audit_samples: int = 64
+    # dataplane supervision (datapath/supervisor.py): overload
+    # admission control + device-fault circuit breaking with
+    # fail-static host fallback on the serving lane.  Disabling
+    # restores the exact pre-supervision dispatch path (the compiled
+    # device program is byte-identical either way).
+    enable_supervision: bool = True
+    # weight bound on the serving lane's pending queue (records);
+    # overflow is shed fail-closed with serving_shed_total{reason}
+    serving_max_pending: int = 1 << 17
+    # optional default serving deadline (seconds; 0 = none): queued
+    # work older than this is shed instead of dispatched
+    serving_deadline_s: float = 0.0
+    # degraded-mode policy for NEW flows while serving fail-static
+    # from the host oracle (established flows always keep their
+    # verdicts): "oracle" = enforce last-known-good policy on host,
+    # "deny" = no new flows while degraded, "allow" = open
+    degraded_new_flow_policy: str = "oracle"
+    # a finalize (the one blocking device sync) outliving this
+    # deadline is a device fault — the hung-complete watchdog
+    supervisor_watchdog_s: float = 10.0
+    # consecutive transient faults before the breaker opens (fatal
+    # faults trip it immediately)
+    supervisor_failure_threshold: int = 3
+    # first half-open probe delay; doubles per failed probe up to
+    # the resilience layer's max_reset
+    supervisor_reset_s: float = 1.0
+    # shard the verdict dataplane across the device mesh
+    # (parallel/sharded.py): >= 2 builds a (dp, ep=dataplane_shards)
+    # mesh over the visible devices, shards the endpoint axis of the
+    # policy tables across ep with per-shard CT/flow state and
+    # per-shard fault domains (a device fault degrades ONE shard to
+    # fail-static while the rest keep serving on device).  0/1 = the
+    # single-engine dataplane.  Device count must divide evenly.
+    dataplane_shards: int = 0
+    # control-plane outage survivability (kvstore/outage.py): opt-in.
+    # When enabled, sustained kvstore failure (breaker-open /
+    # lease-keepalive loss) flips kvstore_mode to degraded: consumers
+    # pin last-known-good state with a tracked staleness age, kvstore
+    # mutations are journaled for reconnect replay, and identity
+    # allocation falls back to node-local ephemeral IDs promoted to
+    # cluster scope on reconnect.  Disabled = behavior-identical to the
+    # unwrapped backend (status-path staleness bookkeeping only).
+    enable_kvstore_survival: bool = False
+    # consecutive op/probe failures before the outage breaker opens
+    kvstore_failure_threshold: int = 3
+    # the kvstore-outage controller's tick cadence: idle-probe period
+    # while ok, half-open probe cadence floor while degraded
+    kvstore_probe_interval_s: float = 0.5
+    # lease grace window: an outage shorter than this is expected to
+    # leave our lease-backed keys intact server-side; the reconnect
+    # reconcile re-asserts them either way and flags exceeded-grace
+    kvstore_grace_s: float = 60.0
+    # write-journal depth bound (per-key-coalesced entries; overflow
+    # evicts oldest with accounting)
+    kvstore_journal_max: int = 8192
+    # reconnect reconcile rate limit (journal replay + local-key
+    # repair ops per second; 0 = unthrottled)
+    kvstore_reconcile_ops_per_s: float = 2000.0
+    # inline per-packet threat scoring (cilium_tpu/threat/): when
+    # enabled, both jitted family pipelines fuse the quantized anomaly
+    # scorer; default mode is SHADOW (score-only — verdicts are
+    # bit-exact pre-threat until an operator flips to enforce, and
+    # every enforcement arm threshold defaults to disabled anyway).
+    enable_threat: bool = False
+    threat_mode: str = "shadow"        # shadow | enforce
+    threat_buckets: int = 1024         # per-identity window/bucket slots
+    threat_window_s: int = 8           # claim-window span (seconds)
+    threat_drop_score: int = 0         # score >= this drops (0 = off)
+    threat_redirect_score: int = 0     # score >= this redirects (0 = off)
+    threat_ratelimit_score: int = 0    # score >= this rate-limits (0 = off)
+    threat_redirect_port: int = 0      # the redirect arm's proxy port
+    threat_rate_per_s: float = 256.0   # token-bucket refill rate
+    threat_burst: int = 1024           # token-bucket capacity
+    # device-resident traffic analytics (cilium_tpu/analytics/): fuse
+    # the count-min sketch + cardinality-register stage into both
+    # family pipelines.  Disabled = the jitted programs are
+    # byte-identical pre-analytics (the with_threat precedent); the
+    # drain controller swaps the A/B epoch and decodes the quiesced
+    # section into capped top-K gauges + anomaly events
+    enable_analytics: bool = False
+    analytics_width: int = 1 << 12     # sketch columns (power of two)
+    analytics_depth: int = 2           # salted hash rows per sketch
+    analytics_lanes: int = 4           # cardinality hash-max lanes
+    analytics_stripe: int = 16         # 1-in-N update stripe (the
+    #   fused-overhead budget: scatter cost scales with the sampled
+    #   fraction; 16 holds the analytics-overhead bench gate)
+    analytics_drain_interval_s: float = 1.0  # 0 disables the controller
+    analytics_top_k: int = 8           # exported heavy-hitter gauge cap
+    analytics_scan_ports: int = 16     # scan-suspect distinct-dport bar
+    analytics_hh_share: float = 0.25   # heavy-hitter byte-share bar
+    kvstore: str = "memory"
+    kvstore_opts: Dict[str, str] = field(default_factory=dict)
+    # runtime-mutable option map shared by new endpoints
+    opts: IntOptions = field(default_factory=lambda: IntOptions(defaults={
+        "Policy": OPTION_ENABLED,
+        "IngressPolicy": OPTION_ENABLED,
+        "EgressPolicy": OPTION_ENABLED,
+        "Conntrack": OPTION_ENABLED,
+        "ConntrackAccounting": OPTION_ENABLED,
+        "DropNotification": OPTION_ENABLED,
+        "TraceNotification": OPTION_ENABLED,
+    }))
+
+    def always_allow_localhost(self) -> bool:
+        return self.allow_localhost == "always"

@@ -1401,9 +1401,11 @@ class PolicyRun:
     repository, every endpoint regenerated), ``_regenerate_endpoint`` as
     ``:1358-1397`` (regenerate against an identity-cache snapshot with
     the proxy, apply, ``sync_endpoint``, ``refresh_policy(rev)``) and
-    the ipcache's debounced LPM reload as ``:324-331``.  ``add_peer``
-    stands in for the kvstore's remote identities and ipcache entries.
-    It goes when the daemon is ported.
+    the ipcache's debounced LPM reload as ``:324-331``.  The daemon
+    itself is ported (``daemon/daemon.py``), and ``chip_smoke.py`` holds
+    it against this run.  ``add_peer`` stands in for the kvstore's remote
+    identities and ipcache entries until the kvstore backends are
+    ported; the run goes with them.
 
     Builds run on the manager's builder threads; a build that raises
     leaves its endpoint ``not-ready`` (the reference's worker swallows

@@ -235,7 +235,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(config1):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Run in a fresh interpreter (conftest imports jax into this one):
     every module of the port, and chip_smoke.py, import without jax and
-    without any module of the JAX package."""
+    without any module of the JAX package; the agent's modules (daemon,
+    REST, CLI, monitor, Hubble, clustermesh) are among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cilium_tpu_torch\n"
@@ -246,7 +247,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'cilium_tpu' or m.startswith('cilium_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert 'chip_smoke' in sys.modules and len(mods) >= 15, mods\n")
+        "assert 'chip_smoke' in sys.modules and len(mods) >= 15, mods\n"
+        "agent = ['cilium_tpu_torch.' + m for m in (\n"
+        "    'daemon', 'daemon.rest', 'cli', 'monitor', 'hubble',\n"
+        "    'clustermesh')]\n"
+        "assert set(agent) <= set(mods), sorted(set(agent) - set(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
