@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's verdict and serving paths, and its
-single-node agent, on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's verdict and serving paths, its
+single-node agent and its agents joined through the kvstore, on one
+NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -185,10 +186,31 @@ script exits non-zero:
    CT entry restored, and every row whose flow had an entry keeps its
    verdict.  No hand-written kernel runs on this path: the dense
    kernel's launch count, set to 0 before the phase, is read after it.
-13. the kernels line (the dense kernel's launches on the config-2, L7,
-   stage, serving and agent paths, 0, beside those of v4, v6 and the
-   policy path), the card's name and power limit from nvidia-smi, and a
-   last line ``{"ok": true, "device": {...}}``.
+13. the cluster control plane (``phase_kvstore``): the port's
+   ``MiniEtcd`` on loopback and three agents on the card over the
+   propagation state (100 rules), cluster id 3 (every identity above
+   2**16).  A (``node-a``, the outage guard's degrade on) reaches the
+   store through a ``FaultProxy`` and holds the 16 endpoints and the
+   rules (over REST); B (``node-b``) holds the 24 peers as its own
+   endpoints and registers its node with a pod CIDR, so they reach A
+   only through the store; R has no store and is given the peers and
+   B's node by hand.  ``kvstore-converge``: seconds until the 24 peer
+   IPs resolve to B's identities in A's ipcache LPM on the card, until
+   B's pod CIDR resolves to B's node in A's tunnel LPM on the card, and
+   until A's map states equal R's; identities equal on A and B for
+   every label set.  ``kvstore-parity``: 2**20 new connections through
+   A and R, every output, CT field, per-entry counter and map state
+   equal (identities renamed by labels, ports by redirect id).
+   ``kvstore-outage``: the proxy blackholed: seconds to ``degraded``,
+   a held 2**16-row batch unchanged from the same CT state; an endpoint
+   added over REST on a node-local identity; the proxy healed: seconds
+   to ``ok`` with the identity promoted, the degraded, reconciling and
+   recovered flight-recorder events, and that endpoint's traffic and
+   map states equal to R's with the same endpoint added.
+14. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage, serving, agent and kvstore paths, 0, beside those of v4, v6
+   and the policy path), the card's name and power limit from
+   nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -239,8 +261,10 @@ from cilium_tpu_torch.datapath.serving import VerdictDispatcher
 from cilium_tpu_torch.datapath.supervisor import DeviceSupervisor
 from cilium_tpu_torch.device import cuda_ms, host_buffer, nvidia_smi, probe
 from cilium_tpu_torch.hubble.aggregation import EVENT_BIAS
-from cilium_tpu_torch.identity import IdentityCache
+from cilium_tpu_torch.identity import (IdentityCache,
+                                       is_local_scope_identity)
 from cilium_tpu_torch.ipcache.ipcache import SOURCE_KVSTORE
+from cilium_tpu_torch.kvstore import EtcdBackend, MiniEtcd
 from cilium_tpu_torch.l7.dns import DNSPolicyEngine
 from cilium_tpu_torch.l7.fast import encode_payloads
 from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
@@ -249,6 +273,7 @@ from cilium_tpu_torch.l7.http import request_line as http_request_line
 from cilium_tpu_torch.l7.kafka import KafkaPolicyEngine
 from cilium_tpu_torch.labels import LabelArray, Labels
 from cilium_tpu_torch.native import PKT_HEADER_DTYPE
+from cilium_tpu_torch.node import Node, NodeAddress
 from cilium_tpu_torch.observability import stages
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.ops.bucket_ops import BucketVerdictEngine
@@ -266,7 +291,9 @@ from cilium_tpu_torch.proxy import PROXY_PORT_MAX, proxy_id
 from cilium_tpu_torch.threat.model import ThreatConfig, default_model
 from cilium_tpu_torch.threat.oracle import oracle_threat_step
 from cilium_tpu_torch.threat.trainer import ThreatTrainer
-from cilium_tpu_torch.utils.faultinject import DeviceFaultInjector
+from cilium_tpu_torch.utils.faultinject import (ControlPlaneFaultInjector,
+                                                DeviceFaultInjector,
+                                                FaultProxy)
 from cilium_tpu_torch.utils.option import DaemonConfig
 from cilium_tpu_torch.verdict_service import (VerdictClient, VerdictService,
                                               _decode_wire_payloads,
@@ -275,7 +302,8 @@ from cilium_tpu_torch.workloads import (ANALYTICS, CONFIG2_FIELDS,
                                         FQDN_SELECTORS, HTTP_RULES,
                                         KAFKA_RULES, L7_BAD_SHARES,
                                         L7_DNS_NAMES, L7_FLOW_SHARE,
-                                        L7_WINDOW, THREAT, TRAFFICS,
+                                        L7_WINDOW, POLICY_ENDPOINT_ID_BASE,
+                                        THREAT, TRAFFICS,
                                         V4_T0, Config1Run, Config2Run,
                                         PolicyRun, V4Run, V6Run,
                                         build_config2,
@@ -2950,12 +2978,17 @@ POLICY_WORKERS = 6        # repository-oracle processes (the twin has its own)
 POLICY_WAIT_S = 300.0
 
 
-def policy_outputs(run, outs) -> dict:
+def policy_outputs(run, outs, rename=None) -> dict:
     """Every output of one ``process_packed`` on a ``PolicyRun`` and every
     buffer it wrote (every CT field, sentinel included, and both
-    counters of every policy entry), as numpy copies."""
+    counters of every policy entry), as numpy copies.  ``rename``
+    ({identity: identity}) renames identities in the identity output
+    and before the counters are put in key order."""
     verdict, event, identity, nat = outs
     dp = run.datapath
+    if rename is not None:
+        identity = torch.as_tensor(rename_ids(identity.cpu().numpy(),
+                                              rename))
     got = {"verdict": verdict, "event": event, "identity": identity}
     got.update({f"nat.{f}": getattr(nat, f) for f in nat._fields})
     n = dp.ct.slots + 1
@@ -2964,6 +2997,8 @@ def policy_outputs(run, outs) -> dict:
     # the table geometry grows in build order, which the builder threads
     # interleave: each counter is taken at its entry, in key order
     key_id, key_meta, _ = run.table_mgr.host_mirror()
+    if rename is not None:
+        key_id = rename_ids(key_id, rename)
     ep, col = np.nonzero(key_meta)
     at = (ep * key_meta.shape[1] + col)[np.lexsort(
         (key_meta[ep, col], key_id[ep, col], ep))]
@@ -2974,10 +3009,13 @@ def policy_outputs(run, outs) -> dict:
     return {k: t.to("cpu", copy=True).numpy() for k, t in got.items()}
 
 
-def policy_map_states(run) -> dict:
-    """{table slot: {(identity, port, proto, direction): proxy port}}."""
-    return {slot: {(k.identity, k.dest_port, k.nexthdr, k.direction):
-                   e.proxy_port for k, e in st.items()}
+def policy_map_states(run, rename=None) -> dict:
+    """{table slot: {(identity, port, proto, direction): proxy port}},
+    identities renamed through the dict ``rename`` where given."""
+    rename = rename or {}
+    return {slot: {(rename.get(k.identity, k.identity), k.dest_port,
+                    k.nexthdr, k.direction): e.proxy_port
+                   for k, e in st.items()}
             for slot, st in run.table_mgr.states_by_slot().items()}
 
 
@@ -3683,6 +3721,341 @@ def phase_daemon(dev, run) -> int:
     return launches
 
 
+# the kvstore phase: the propagation state (it builds cheaply); a
+# cluster id, so every identity the store hands out is above 2**16
+KVSTORE_STATE = POLICY_PROPAGATION
+KVSTORE_BATCH = 1 << 20
+KVSTORE_HELD = 1 << 16
+KVSTORE_CLUSTER_ID = 3
+KVSTORE_NODE_B = ("node-b", "192.168.77.2", "10.129.0.0/24")
+KVSTORE_OUTAGE_LABEL = "k8s:outage=held"
+KVSTORE_WAIT_S = 120.0
+
+
+def kvstore_agent(dev, backend, node: str, survive: bool = False):
+    """A ``Daemon`` on ``dev`` over ``backend`` (None: no kvstore), with
+    the conntrack geometry of ``phase_policy``'s run; ``survive`` turns
+    on the outage guard's degrade, journal and promotion, with the
+    chaos tests' probe cadence."""
+    cfg = DaemonConfig(state_dir="", ct_slots=POLICY_CT_SLOTS,
+                       cluster_id=KVSTORE_CLUSTER_ID,
+                       enable_kvstore_survival=survive,
+                       kvstore_probe_interval_s=0.1,
+                       kvstore_failure_threshold=2)
+    return Daemon(config=cfg, kvstore_backend=backend, node_name=node,
+                  device=dev)
+
+
+def wait_until(cond, what: str, timeout: float = KVSTORE_WAIT_S) -> float:
+    """Seconds until ``cond()`` holds; raises past ``timeout``."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"kvstore: timed out waiting for {what}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def card_lpm(dp, table: str, addrs) -> np.ndarray:
+    """The values the engine's device LPM (``ipcache`` or ``tunnel``)
+    gives ``addrs`` (dotted IPv4), LPM_MISS where none matches: a lookup
+    on the tensors the served step reads."""
+    t = dp._tables
+    if table == "ipcache":
+        lpm, compiled = t.datapath, dp.compiled_ipcache
+        tensors = (lpm.lpm_masks, lpm.lpm_key_a, lpm.lpm_key_b,
+                   lpm.lpm_value, lpm.lpm_plens)
+    else:
+        compiled = dp.compiled_tunnel
+        if compiled is None or t.tun_masks is None:
+            return np.full(len(addrs), LPM_MISS, np.int32)
+        tensors = (t.tun_masks, t.tun_key_a, t.tun_key_b, t.tun_value,
+                   t.tun_plens)
+    keys = torch.as_tensor(np.array([int(ipaddress.IPv4Address(a))
+                                     for a in addrs], np.uint32)
+                           .view(np.int32), device=dp.device)
+    _found, value = lpm_lookup(*tensors, keys,
+                               max(1, compiled.max_probe))
+    return value.cpu().numpy()
+
+
+def identity_rename(src, dst) -> dict:
+    """{numeric identity on ``src``: the one ``dst`` gives its labels},
+    for every identity ``src`` knows that ``dst`` knows too."""
+    out = {}
+    for ident in src.identity_allocator.snapshot_identities():
+        other = dst.identity_allocator.lookup_by_labels(ident.labels)
+        if other is not None:
+            out[ident.id] = other.id
+    return out
+
+
+def rename_ids(arr, rename: dict) -> np.ndarray:
+    """``arr``'s identities renamed through ``rename``."""
+    arr = np.asarray(arr)
+    u, inv = np.unique(arr, return_inverse=True)
+    mapped = np.array([rename.get(int(x), int(x)) for x in u], arr.dtype)
+    return mapped[inv].reshape(arr.shape)
+
+
+def map_state_gap(a, r, rename: dict) -> int:
+    """Map-state entries in which agent ``a`` and agent ``r`` differ,
+    endpoint by endpoint id: ``a``'s identities renamed through
+    ``rename`` and its proxy ports to ``r``'s through the redirect ids."""
+    redirect_of = {x.proxy_port: x.id for x in a.proxy.redirects()}
+    port_in_r = {x.id: x.proxy_port for x in r.proxy.redirects()}
+    by_slot = [policy_map_states(a, rename), policy_map_states(r)]
+    gap = 0
+    for ep in {e.id for e in a.endpoints.endpoints()} | \
+            {e.id for e in r.endpoints.endpoints()}:
+        got = [by_slot[k].get(getattr(d.endpoints.lookup(ep),
+                                      "table_slot", None), {})
+               for k, d in enumerate((a, r))]
+        renamed = {(key, port_in_r.get(redirect_of.get(v), v) if v else 0)
+                   for key, v in got[0].items()}
+        gap += len(renamed ^ set(got[1].items()))
+    return gap
+
+
+def kvstore_converged(a, r, timeout: float = KVSTORE_WAIT_S):
+    """Seconds until ``a`` and ``r`` are idle with equal map states up
+    to renaming and their engines' LPMs hold their ipcaches (identity
+    changes regenerate without a revision bump, so the revision wait
+    alone does not see them); None if that does not happen within
+    ``timeout``, and the parity legs then count the differences."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if all(d.wait_for_quiesce(1.0) and d.datapath.ipcache_prefixes ==
+               d.ipcache.to_lpm_prefix_families()[0] for d in (a, r)) \
+                and map_state_gap(a, r, identity_rename(a, r)) == 0:
+            return time.perf_counter() - t0
+        time.sleep(0.01)
+    return None
+
+
+def outage_packets(state, remotes, slot: int, ip: str, seed: int):
+    """``policy_packets`` rows moved onto the endpoint in table slot
+    ``slot`` with address ``ip``: new connections to and from the
+    remotes, half ingress and half egress."""
+    packed, _ = policy_packets(state, remotes, KVSTORE_HELD, seed=seed)
+    col = {f: i for i, f in enumerate(PACKED_FIELDS)}
+    egress = packed[col["direction"]] == 1
+    addr = np.uint32(int(ipaddress.IPv4Address(ip))).view(np.int32)
+    packed[col["endpoint"]] = slot
+    packed[col["saddr"]] = np.where(egress, addr, packed[col["saddr"]])
+    packed[col["daddr"]] = np.where(egress, packed[col["daddr"]], addr)
+    return packed
+
+
+def phase_kvstore(dev) -> int:
+    """Two agents on the card joined through the port's kvstore, held
+    against an agent that is given the peers by hand; returns the dense
+    kernel's launches on the path (the agents serve on the hash
+    engine)."""
+    t_phase = time.perf_counter()
+    state = policy_state(*KVSTORE_STATE)
+    remotes = policy_remotes(state)
+    packed, _ = policy_packets(state, remotes, KVSTORE_BATCH)
+    held, _ = policy_packets(state, remotes, KVSTORE_HELD, seed=21)
+    node_b, node_b_ip, pod_cidr = KVSTORE_NODE_B
+    etcd = MiniEtcd(reap_interval=0.1).start()
+    proxy = FaultProxy("127.0.0.1", etcd.port).start()
+    injector = ControlPlaneFaultInjector(etcd=proxy,
+                                         lease_expirer=etcd.expire_leases)
+    agents, srv = [], None
+    dv.dense_verdict.launches = 0
+    try:
+        # A behind the fault proxy, B straight on the store, R without
+        # a store; the rules reach A over REST, R directly
+        a = kvstore_agent(dev, EtcdBackend(
+            host="127.0.0.1", port=proxy.port, lease_ttl=30.0,
+            timeout=1.0), "node-a", survive=True)
+        agents.append(a)
+        b = kvstore_agent(dev, EtcdBackend(port=etcd.port, lease_ttl=30.0),
+                          node_b)
+        agents.append(b)
+        r = kvstore_agent(dev, None, "node-r")
+        agents.append(r)
+        srv = APIServer(a).start()
+        url = srv.base_url
+        for ep_id, ip, labels in state.endpoints:
+            rest(url, "PUT", f"/endpoint/{ep_id}",
+                 {"ipv4": ip, "labels": list(labels)})
+            r.endpoint_create(ep_id, ipv4=ip, labels=list(labels))
+        # R's peers as phase_daemon enters them, before its rules
+        for ip, labels in state.peers:
+            ident, _ = r.identity_allocator.allocate(
+                Labels.from_model(list(labels)))
+            r.ipcache.upsert(ip, ident.id, SOURCE_KVSTORE)
+        rest(url, "PUT", "/policy", state.rules_json.encode())
+        r.policy_add(rules_from_json(state.rules_json))
+        r.node_manager.node_updated(Node(
+            name=node_b, cluster=r.config.cluster_name,
+            cluster_id=KVSTORE_CLUSTER_ID,
+            addresses=[NodeAddress(type="InternalIP", ip=node_b_ip)],
+            ipv4_alloc_cidr=pod_cidr))
+        if not (agent_settled(a, POLICY_WAIT_S) and
+                agent_settled(r, POLICY_WAIT_S)):
+            raise AssertionError("kvstore: builds did not finish")
+
+        # ---- kvstore-converge: B's workloads reach A's card ----
+        peer_ips = [ip for ip, _ in state.peers]
+        t0 = time.perf_counter()
+        for k, (ip, labels) in enumerate(state.peers):
+            b.endpoint_create(3000 + k, ipv4=ip, labels=list(labels))
+        b.register_node(node_b_ip, pod_cidr)
+
+        def peers_on_card():
+            want = [b.identity_allocator.lookup_by_labels(
+                Labels.from_model(list(labels))).id
+                for _ip, labels in state.peers]
+            return (card_lpm(a.datapath, "ipcache", peer_ips) ==
+                    np.array(want, np.int32)).all()
+        wait_until(peers_on_card, "the peers in A's card ipcache")
+        converge_s = time.perf_counter() - t0
+        def tunnel_on_card():
+            return bool(card_lpm(
+                a.datapath, "tunnel",
+                [str(ipaddress.ip_network(pod_cidr)[7])])[0] ==
+                np.uint32(int(ipaddress.IPv4Address(node_b_ip)))
+                .view(np.int32))
+        tunnel_s = wait_until(tunnel_on_card,
+                              "B's pod CIDR in A's card tunnel LPM")
+        # read again after the wait: what is reported is a lookup
+        tunnel_in = tunnel_on_card()
+        policy_s = kvstore_converged(a, r)
+        label_sets = {tuple(lb) for _e, _ip, lb in state.endpoints} | \
+            {tuple(lb) for _ip, lb in state.peers}
+        ids_a, ids_b = ({lb: d.identity_allocator.lookup_by_labels(
+            Labels.from_model(list(lb))).id for lb in label_sets}
+            for d in (a, b))
+        emit("kvstore-converge", peers=len(peer_ips),
+             peers_on_card_s=converge_s,
+             tunnel_on_card_s=converge_s + tunnel_s,
+             policy_converged_s=policy_s,
+             label_sets=len(label_sets),
+             identities_equal_a_b=sum(ids_a[k] == ids_b[k]
+                                      for k in label_sets),
+             identities_above_2_16=sum(i >> 16 == KVSTORE_CLUSTER_ID
+                                       for i in ids_a.values()),
+             pod_cidr_in_card_tunnel=tunnel_in,
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # ---- kvstore-parity: A against R, renamed by labels ----
+        now = int(time.time())
+        batch = torch.as_tensor(packed, device=dev)
+        for d in (a, r):
+            d.datapath.counters.packets.zero_()
+            d.datapath.counters.bytes.zero_()
+        rename = identity_rename(a, r)
+        got = policy_outputs(a, a.datapath.process_packed(batch, now=now),
+                             rename=rename)
+        want = policy_outputs(r, r.datapath.process_packed(batch, now=now))
+        parity, ports_renamed = policy_twin_mismatches(
+            got, {"outputs": want,
+                  "redirects": {x.id: x.proxy_port
+                                for x in r.proxy.redirects()},
+                  "states": policy_map_states(r)},
+            {x.id: x.proxy_port for x in a.proxy.redirects()},
+            policy_map_states(a, rename))
+        emit("kvstore-parity", rows=int(packed.shape[1]),
+             a_vs_r=parity, ports_renamed=ports_renamed,
+             identities_renamed=sum(k != v for k, v in rename.items()),
+             allowed_share=float((got["verdict"] >= 0).mean()),
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # ---- kvstore-outage: blackhole, an endpoint, heal ----
+        held_t = torch.as_tensor(held, device=dev)
+        snap = a.datapath.snapshot_ct()
+        before = policy_outputs(a, a.datapath.process_packed(held_t,
+                                                             now=now))
+        seq0 = a.flight_events()["seq"]
+        injector.blackhole("etcd")
+        degrade_s = wait_until(
+            lambda: a.status()["kvstore"]["mode"] == "degraded",
+            "A degraded")
+        a.datapath.restore_ct_snapshots(*snap)
+        during = policy_outputs(a, a.datapath.process_packed(held_t,
+                                                             now=now))
+        held_bad = {k: int((during[k] != before[k]).sum())
+                    for k in before if not k.startswith("counters.")}
+        new_id = POLICY_ENDPOINT_ID_BASE + len(state.endpoints)
+        new_ip = "10.130.0.2"
+        new_labels = list(state.endpoints[0][2]) + [KVSTORE_OUTAGE_LABEL]
+        rest(url, "PUT", f"/endpoint/{new_id}",
+             {"ipv4": new_ip, "labels": new_labels})
+        local_id = a.endpoints.lookup(new_id).security_identity
+        # R has no identity watch: its other endpoints learn the new
+        # identity when told, as A's learn it from the allocator
+        r.endpoint_create(new_id, ipv4=new_ip, labels=new_labels)
+        r.trigger_policy_updates("identity-change")
+        t0 = time.perf_counter()
+        injector.heal()
+        wait_until(lambda: a.status()["kvstore"]["mode"] == "ok" and
+                   a.status()["kvstore"]["local-identities"] == 0,
+                   "A recovered with its identities promoted")
+        recover_s = time.perf_counter() - t0
+        promoted_id = a.endpoints.lookup(new_id).security_identity
+        promoted_s = kvstore_converged(a, r)
+        seen = {e["type"] for e in a.flight_events(since=seq0)["events"]}
+        notes = [e.note for e in a.monitor.tail(1000, kind="agent")
+                 if e.note.startswith("identity-promotion")]
+        promoted = sum(int(n.split("promoted=")[1].split()[0])
+                       for n in notes)
+        slot_a = a.endpoints.lookup(new_id).table_slot
+        slot_r = r.endpoints.lookup(new_id).table_slot
+        rename = identity_rename(a, r)
+        pk_a = outage_packets(state, remotes, slot_a, new_ip, seed=23)
+        pk_r = outage_packets(state, remotes, slot_r, new_ip, seed=23)
+        out_a = a.datapath.process_packed(torch.as_tensor(pk_a, device=dev),
+                                          now=now)
+        out_r = r.datapath.process_packed(torch.as_tensor(pk_r, device=dev),
+                                          now=now)
+        new_bad = {
+            "verdict": int((out_a[0].cpu().numpy() !=
+                            out_r[0].cpu().numpy()).sum()),
+            "event": int((out_a[1].cpu().numpy() !=
+                          out_r[1].cpu().numpy()).sum()),
+            "identity": int((rename_ids(out_a[2].cpu().numpy(), rename) !=
+                             out_r[2].cpu().numpy()).sum())}
+        new_bad["map_state"] = map_state_gap(a, r, rename)
+        events_needed = {"kvstore-degraded", "kvstore-reconciling",
+                         "kvstore-recovered"}
+        emit("kvstore-outage", held_rows=int(held.shape[1]),
+             degraded_s=degrade_s, held_mismatches=held_bad,
+             outage_identity=local_id,
+             outage_identity_local=is_local_scope_identity(local_id),
+             recovered_s=recover_s, promoted=promoted,
+             policy_converged_s=promoted_s,
+             promoted_identity=promoted_id,
+             events_seen=sorted(seen & events_needed),
+             new_endpoint_rows=int(pk_a.shape[1]),
+             new_endpoint_vs_r=new_bad,
+             allowed_share=float((out_a[0].cpu().numpy() >= 0).mean()),
+             name_power_limit=nvidia_smi("name,power.limit"))
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        for d in agents:
+            d.shutdown()
+        injector.close()
+        proxy.close()
+        etcd.shutdown()
+    launches = dv.dense_verdict.launches
+    counts = list(parity.values()) + list(held_bad.values()) + \
+        list(new_bad.values()) + [
+            len(label_sets) - sum(ids_a[k] == ids_b[k] for k in label_sets),
+            int(not tunnel_in), int(not is_local_scope_identity(local_id)),
+            int(is_local_scope_identity(promoted_id)), int(promoted < 1),
+            len(events_needed - seen)]
+    if any(counts):
+        raise AssertionError(f"kvstore: {counts}")
+    emit("kvstore", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": launches},
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3742,6 +4115,7 @@ def main() -> int:
     finally:
         for run in kept:
             run.shutdown()
+    kvstore_launches = phase_kvstore(dev)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -3778,6 +4152,7 @@ def main() -> int:
         "serving_path_launches": serving_launches,
         "policy_path_launches": policy_launches,
         "daemon_path_launches": daemon_launches,
+        "kvstore_path_launches": kvstore_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -14,10 +14,9 @@ Run the agent itself with ``python -m cilium_tpu_torch.cli agent``
 
 A copy of ``cilium_tpu/cli.py`` over the port's agent.  ``agent`` takes
 ``--device`` (default ``cuda``; without a card it raises).  The agent's
-``--kvstore`` other than ``none``, ``--k8s-api-server`` and
-``--docker-socket``, and the ``cni``, ``docker-plugin`` and ``bugtool``
-commands, raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.  A verdict service that fails to start stops the agent.
+``--k8s-api-server`` and ``--docker-socket``, and the ``cni``,
+``docker-plugin`` and ``bugtool`` commands, raise
+``NotImplementedError`` naming the ROADMAP item that brings them.  A verdict service that fails to start stops the agent.
 """
 
 from __future__ import annotations
@@ -871,13 +870,11 @@ def cmd_not_ported(c: Client, args) -> int:
 def cmd_agent(args) -> int:
     """Run the agent + API server in the foreground."""
     from .daemon import Daemon
-    from .daemon.daemon import (ITEM_HOST_INTEGRATIONS, ITEM_KVSTORE,
-                                not_ported)
+    from .daemon.daemon import ITEM_HOST_INTEGRATIONS, not_ported
     from .daemon.rest import APIServer
+    from .kvstore.backend import close_client, setup_client
     from .utils.option import DaemonConfig
 
-    if args.kvstore and args.kvstore != "none":
-        raise not_ported(f"--kvstore {args.kvstore}", ITEM_KVSTORE)
     if args.k8s_api_server:
         raise not_ported("--k8s-api-server", ITEM_HOST_INTEGRATIONS)
     if args.docker_socket:
@@ -887,7 +884,34 @@ def cmd_agent(args) -> int:
                        state_dir=args.state_dir,
                        ct_checkpoint_interval_s=getattr(
                            args, "ct_checkpoint_interval", 10.0))
-    d = Daemon(config=cfg, node_name=args.node_name, device=args.device)
+    kv = None
+    if args.kvstore and args.kvstore != "none":
+        # --kvstore-opt port=2379 lease_ttl=15 ... (daemon/main.go
+        # --kvstore-opt analog); numeric values coerce so backend
+        # constructors get real ints/floats
+        opts = {}
+        for item in getattr(args, "kvstore_opt", None) or []:
+            k, sep, v = item.partition("=")
+            if not sep or not k or not v:
+                raise SystemExit(
+                    f"--kvstore-opt {item!r}: expected key=value")
+            try:
+                opts[k] = int(v)
+            except ValueError:
+                try:
+                    opts[k] = float(v)
+                except ValueError:
+                    opts[k] = v
+        try:
+            kv = setup_client(args.kvstore, **opts)
+        except KeyError:
+            raise SystemExit(f"unknown kvstore backend "
+                             f"{args.kvstore!r}")
+        except TypeError as e:
+            raise SystemExit(f"bad --kvstore-opt for "
+                             f"{args.kvstore!r}: {e}")
+    d = Daemon(config=cfg, kvstore_backend=kv, node_name=args.node_name,
+               device=args.device)
     restored = d.restore_endpoints()
     server = APIServer(d, port=args.api_port).start()
     vsvc = None
@@ -921,6 +945,7 @@ def cmd_agent(args) -> int:
             # flag asked for
             server.shutdown()
             d.shutdown()
+            close_client()
             raise SystemExit(f"verdict service failed to start: {e}")
     print(f"cilium-tpu agent up: api={server.base_url} "
           f"restored={restored} endpoints" +
@@ -932,7 +957,11 @@ def cmd_agent(args) -> int:
         if vsvc is not None:
             vsvc.shutdown()
         server.shutdown()
+        # the agent closes the store's client it was given;
+        # close_client drops the process-global reference to it (a
+        # second close of a closed client does nothing)
         d.shutdown()
+        close_client()
     return 0
 
 
@@ -1227,7 +1256,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "service peer authentication (HMAC "
                          "challenge-response)")
     ag.add_argument("--kvstore", default="none",
-                    help="none (the backends are not ported yet)")
+                    help="none | in-memory | remote | etcd")
+    ag.add_argument("--kvstore-opt", action="append", default=[],
+                    help="backend option key=value (repeatable), "
+                         "e.g. --kvstore-opt port=2379")
     ag.add_argument("--cluster-name", default="default")
     ag.add_argument("--cluster-id", type=int, default=0)
     ag.add_argument("--node-name", default="node-local")

@@ -4,8 +4,8 @@ Reference: daemon/daemon.go:1090 NewDaemon (bootstrap order), daemon/
 policy.go:171 PolicyAdd / :48 TriggerPolicyUpdates, daemon/endpoint.go
 (REST endpoint lifecycle), daemon/state.go (restore), daemon/status.go.
 
-Port of ``cilium_tpu/daemon/daemon.py`` with its defaults: no kvstore
-backend and one engine (``dataplane_shards`` below 2).  The daemon owns
+Port of ``cilium_tpu/daemon/daemon.py`` with one engine
+(``dataplane_shards`` below 2).  The daemon owns
 one torch ``Datapath`` (device tables and CT state on ``device``), one
 ``DeviceTableManager``-backed regeneration pipeline and the ``ProxyManager``
 on the same device, with the reference's controllers (``ct-gc``,
@@ -13,11 +13,13 @@ on the same device, with the reference's controllers (``ct-gc``,
 serving supervision whose recovery gate is the full drift audit, and the
 reference's state directory (endpoint JSON checkpoints, ``ct_state.npz``),
 so a state directory either package wrote restores in the other.
+With a kvstore backend it replicates control state (identities,
+ipcache, nodes) through the kvstore as the reference does, behind the
+same outage guard, so port and JAX agents share one store.
 
 The branches into modules a later slice brings raise
-``NotImplementedError`` naming the ROADMAP item: a kvstore backend (with
-the distributed identity allocator, the outage guard and the node
-registry), a sharded dataplane and the xDS server.
+``NotImplementedError`` naming the ROADMAP item: a sharded dataplane
+and the xDS server.
 """
 
 from __future__ import annotations
@@ -40,14 +42,21 @@ from ..device import DeviceLike, resolve_device
 from ..endpoint.endpoint import Endpoint, EndpointState
 from ..endpoint.manager import EndpointManager
 from ..endpoint.tables import DeviceTableManager
-from ..identity import Identity, IdentityCache, LocalIdentityAllocator
+from ..identity import (Identity, IdentityCache, LocalIdentityAllocator,
+                        is_local_scope_identity)
 from ..ipcache.cidr import allocate_cidr_identities, release_cidr_identities
-from ..ipcache.ipcache import SOURCE_AGENT_LOCAL, IPCache
+from ..ipcache.ipcache import SOURCE_AGENT_LOCAL, SOURCE_GENERATED, IPCache
+from ..ipcache.kvstore_sync import (IP_IDENTITIES_PATH, IPIdentityWatcher,
+                                    KVStoreIPCacheSyncer)
+from ..kvstore.identity_allocator import (IDENTITY_PREFIX,
+                                          DistributedIdentityAllocator,
+                                          FallbackIdentityAllocator)
+from ..kvstore.outage import OutageGuard
 from ..ipam import HostScopeIPAM, IPAMError
 from ..l7.dns import DNSCache, DNSPoller, inject_to_cidr_set
 from ..labels import Labels
 from ..monitor import MonitorHub
-from ..node import Node, NodeManager
+from ..node import NODES_PATH, Node, NodeManager, NodeRegistry
 from ..observability import (PolicyPropagationTracker, jit_telemetry,
                              pipeline_report, slo_tracker, tracer)
 from ..observability.events import recorder as flight_recorder
@@ -73,8 +82,6 @@ from ..compiler.lpm import ipv4_to_u32
 V6_SERVICE_ID_BASE = 1_000_000
 
 # the ROADMAP.md queue 1 items that bring what this slice refuses
-ITEM_KVSTORE = "8.1 (the kvstore backends and the distributed identity " \
-    "allocator)"
 ITEM_SHARDING = "7 (sharding)"
 ITEM_XDS = "8.3 (xds, l7/xds_wire, socket_proxy, proxy_child, supervisor)"
 ITEM_HOST_INTEGRATIONS = "8.4 (k8s, cni, docker_plugin, bugtool, health)"
@@ -94,8 +101,6 @@ class Daemon:
                  kvstore_backend=None, node_name: str = "node-local",
                  builders: int = 4, device: DeviceLike = None):
         self.config = config or DaemonConfig()
-        if kvstore_backend is not None:
-            raise not_ported("a kvstore backend", ITEM_KVSTORE)
         if self.config.dataplane_shards >= 2:
             raise not_ported("a sharded dataplane (dataplane_shards >= 2)",
                              ITEM_SHARDING)
@@ -220,12 +225,70 @@ class Daemon:
             mode="tunnel" if self.config.tunnel != "disabled" else "direct",
             datapath=self.datapath)
 
-        # identity allocation: node-local without a kvstore
-        # (daemon.go:1295 InitIdentityAllocator); the distributed
-        # allocator, the outage guard and the node registry come with
-        # the kvstore backends
-        self.identity_allocator = LocalIdentityAllocator(
-            cluster_id=self.config.cluster_id)
+        # identity allocation: distributed when a kvstore is attached
+        # (daemon.go:1295 InitIdentityAllocator).  The backend is
+        # wrapped in the control-plane outage guard (kvstore/outage.py):
+        # pass-through bookkeeping by default (the status() staleness
+        # fix), full degrade/journal/reconcile machinery when
+        # enable_kvstore_survival is on.
+        self._kv_guard = None
+        # promotion-time identity events must not fan a regeneration
+        # storm across every endpoint; see _on_identity_change.  The
+        # id-keyed map outlives the time window because the watch echo
+        # of a promotion arrives only after the streams re-establish.
+        self._suppress_regen_until = 0.0
+        self._suppressed_ident_ids: Dict[int, float] = {}
+        if kvstore_backend is not None:
+            self._kv_guard = OutageGuard(
+                kvstore_backend,
+                degrade=self.config.enable_kvstore_survival,
+                failure_threshold=self.config.kvstore_failure_threshold,
+                probe_interval=self.config.kvstore_probe_interval_s,
+                grace_s=self.config.kvstore_grace_s,
+                journal_max=self.config.kvstore_journal_max,
+                replay_ops_per_s=self.config
+                .kvstore_reconcile_ops_per_s)
+            kvstore_backend = self._kv_guard
+        self.kv = kvstore_backend
+        if self.kv is not None:
+            # remote identity churn must retrigger endpoint policy
+            # recompute (pkg/identity identityWatcher ->
+            # TriggerPolicyUpdates): a peer node allocating a new
+            # identity changes what our selectors match
+            allocator = DistributedIdentityAllocator(
+                self.kv, node=node_name,
+                cluster_id=self.config.cluster_id,
+                on_change=self._on_identity_change)
+            if self.config.enable_kvstore_survival:
+                # outage fallback: adopt cached bindings, else allocate
+                # node-local ephemeral identities promoted on reconnect
+                allocator = FallbackIdentityAllocator(
+                    allocator, guard=self._kv_guard,
+                    on_change=self._on_identity_change)
+            self.identity_allocator = allocator
+            self._ip_syncer = KVStoreIPCacheSyncer(self.kv)
+            self.ipcache.add_listener(self._ip_syncer.listener(),
+                                      replay=False)
+            self._ip_watcher = IPIdentityWatcher(
+                self.kv, self.ipcache,
+                restart=self.config.enable_kvstore_survival,
+                restart_backoff_s=self.config.kvstore_probe_interval_s)
+            self._ip_watcher.start()
+            self.node_registry = NodeRegistry(
+                self.kv,
+                on_node_update=self._on_node_update,
+                on_node_delete=self._on_node_delete)
+            # the reconnect relist-and-diff repairs locally owned keys
+            # under exactly the replicated-store prefixes
+            self._kv_guard.track_prefix(IDENTITY_PREFIX + "/")
+            self._kv_guard.track_prefix(IP_IDENTITIES_PATH + "/")
+            self._kv_guard.track_prefix(NODES_PATH + "/")
+        else:
+            self.identity_allocator = LocalIdentityAllocator(
+                cluster_id=self.config.cluster_id)
+            self._ip_syncer = None
+            self._ip_watcher = None
+            self.node_registry = None
         self.clustermesh = ClusterMesh(
             ipcache=self.ipcache,
             on_node_update=self.node_manager.node_updated,
@@ -316,6 +379,16 @@ class Daemon:
         self.controllers.update_controller(
             "ct-gc", ControllerParams(
                 do_func=lambda: self.datapath.gc(), run_interval=5.0))
+        # the control-plane outage driver: probes the kvstore when
+        # idle, detects sustained failure, and on reconnect runs the
+        # journal replay + relist reconcile followed by local-identity
+        # promotion (opt-in; kvstore/outage.py)
+        if self._kv_guard is not None and \
+                self.config.enable_kvstore_survival:
+            self.controllers.update_controller(
+                "kvstore-outage", ControllerParams(
+                    do_func=self._kvstore_tick,
+                    run_interval=self.config.kvstore_probe_interval_s))
         # periodic CT checkpoint: a kill -9'd agent otherwise loses
         # every established flow (shutdown() is the only other writer)
         self._ct_checkpoint_lock = threading.Lock()
@@ -328,6 +401,148 @@ class Daemon:
                     run_interval=self.config.ct_checkpoint_interval_s))
 
     # ------------------------------------------------------------ nodes
+
+    def _on_identity_change(self, _typ: str, ident) -> None:
+        # may fire during __init__ (watch replay) before the trigger
+        # exists; those identities are covered by the first build anyway
+        now = time.monotonic()
+        if now < getattr(self, "_suppress_regen_until", 0.0):
+            # local-identity promotion window: the promotion path
+            # queues regeneration for exactly the affected endpoints —
+            # the watch echo of our own re-allocations must not fan a
+            # full regeneration storm on top of it
+            return
+        suppressed = getattr(self, "_suppressed_ident_ids", None)
+        if suppressed and ident is not None:
+            until = suppressed.get(getattr(ident, "id", None))
+            if until is not None:
+                if now < until:
+                    # the watch echo of a promoted identity: streams
+                    # re-establish only after reconnect, so this event
+                    # lands well past the promotion window — still our
+                    # own re-allocation, still not a storm trigger
+                    return
+                suppressed.pop(ident.id, None)
+        trigger = getattr(self, "_regen_trigger", None)
+        if trigger is not None:
+            trigger.trigger("identity-change")
+
+    # ------------------------------------- control-plane survivability
+
+    def _kvstore_tick(self) -> None:
+        """The kvstore-outage controller body: drive the outage
+        guard's detector/reconcile state machine, then promote any
+        node-local ephemeral identities once the control plane is
+        healthy again."""
+        guard = self._kv_guard
+        event = guard.tick()
+        if event.get("reconciled"):
+            self.monitor.notify_agent(
+                "kvstore-reconnected",
+                f"reconcile={event.get('report')}")
+        if guard.mode == "ok" and \
+                isinstance(self.identity_allocator,
+                           FallbackIdentityAllocator) and \
+                self.identity_allocator.local_count():
+            self._promote_local_identities()
+
+    def _promote_local_identities(self) -> Dict[str, int]:
+        """Re-key everything holding a node-local ephemeral identity
+        to a cluster-scope one through the (now healthy) distributed
+        allocator, regenerating ONLY the affected endpoints: the
+        re-keyed ones plus any endpoint whose realized policy map
+        references a promoted ID — incremental delta-applies, never a
+        full regeneration storm."""
+        fb = self.identity_allocator
+        mapping: Dict[int, int] = {}   # local id -> cluster id
+        # two suppression layers for the watch echo of our own
+        # re-allocations: a rolling time window (bumped per promoted
+        # identity — a slow kvstore must not outlive it mid-loop) and
+        # an id-keyed map (the echo can land only after the watch
+        # streams re-establish, well past any fixed window)
+        window = max(1.0, 4 * self.config.kvstore_probe_interval_s)
+        suppress_for = max(30.0,
+                           8 * self.config.kvstore_probe_interval_s)
+        self._suppress_regen_until = time.monotonic() + window
+
+        def _register(old_id: int, new_id: int) -> None:
+            mapping[old_id] = new_id
+            until = time.monotonic() + suppress_for
+            self._suppressed_ident_ids[old_id] = until
+            self._suppressed_ident_ids[new_id] = until
+            self._suppress_regen_until = time.monotonic() + window
+
+        promoted_cidrs = rekeyed = 0
+        try:
+            # policy-held CIDR identities first (prefix -> identity)
+            with self._lock:
+                local_cidrs = [
+                    (p, ident, n)
+                    for p, (ident, n) in self._cidr_idents.items()
+                    if is_local_scope_identity(ident.id)]
+            for prefix, old, refs in local_cidrs:
+                # keep the window alive across each kvstore round-trip
+                self._suppress_regen_until = time.monotonic() + window
+                new = None
+                for _ in range(refs):
+                    new, _is_new = fb.allocate(old.labels)
+                if new is None or is_local_scope_identity(new.id):
+                    continue  # control plane flapped again; next tick
+                _register(old.id, new.id)
+                with self._lock:
+                    self._cidr_idents[prefix] = (new, refs)
+                self.ipcache.upsert(prefix, new.id, SOURCE_GENERATED,
+                                    metadata="cidr-policy")
+                for _ in range(refs):
+                    fb.release(old)
+                promoted_cidrs += 1
+            # endpoint identities: re-resolve labels through the
+            # healthy allocator (the normal update path — allocate new,
+            # release local, device identity + ipcache in lockstep)
+            rekeyed_ids = []
+            for ep in self.endpoints.endpoints():
+                old_id = ep.security_identity
+                if not is_local_scope_identity(old_id):
+                    continue
+                self._suppress_regen_until = time.monotonic() + window
+                changed = ep.update_labels(fb, ep.labels)
+                if not changed or \
+                        is_local_scope_identity(ep.security_identity):
+                    continue
+                _register(old_id, ep.security_identity)
+                if ep.table_slot is not None:
+                    self.datapath.set_endpoint_identity(
+                        ep.table_slot, ep.security_identity)
+                if ep.ipv4:
+                    self.ipcache.upsert(ep.ipv4, ep.security_identity,
+                                        SOURCE_AGENT_LOCAL,
+                                        metadata=f"endpoint:{ep.id}")
+                rekeyed_ids.append(ep.id)
+                rekeyed += 1
+            # the actually-diverged endpoint set: re-keyed endpoints
+            # plus endpoints whose realized maps name a promoted ID
+            referencing = []
+            if mapping:
+                for ep in self.endpoints.endpoints():
+                    if ep.id in rekeyed_ids:
+                        continue
+                    state = PolicyMapState(ep.realized)
+                    if any(k.identity in mapping for k in state.keys()):
+                        referencing.append(ep.id)
+                for eid in rekeyed_ids + referencing:
+                    self.endpoints.queue_regeneration(eid)
+        finally:
+            IDENTITY_COUNT.set(len(self.identity_allocator))
+        report = {"promoted": len(mapping), "rekeyed": rekeyed,
+                  "cidrs": promoted_cidrs,
+                  "regenerated": rekeyed + len(referencing)
+                  if mapping else 0}
+        if mapping:
+            self.monitor.notify_agent(
+                "identity-promotion",
+                f"promoted={len(mapping)} rekeyed={rekeyed} "
+                f"regenerated={report['regenerated']}")
+        return report
 
     def _on_node_update(self, node: Node) -> None:
         self.node_manager.node_updated(node)
@@ -351,13 +566,20 @@ class Daemon:
             # the registry will announce this node under its full
             # name; the relay must not treat that as a remote peer
             self.hubble_relay.local_names.add(node.full_name)
+        if self.node_registry is not None:
+            self.node_registry.register_local(node)
         return node
 
     def _hubble_peer_urls(self) -> Dict[str, str]:
-        """Relay peer discovery: every node known through the
-        clustermesh that advertises a Hubble address (hubble-relay's
-        peer service; the node registry comes with the kvstore)."""
+        """Relay peer discovery: every node known through the local
+        registry or the clustermesh that advertises a Hubble address
+        (hubble-relay's peer service, fed from the node store)."""
         out: Dict[str, str] = {}
+        registry = getattr(self, "node_registry", None)
+        if registry is not None:
+            for node in registry.nodes():
+                if node.hubble_address:
+                    out[node.full_name] = node.hubble_address
         mesh = getattr(self, "clustermesh", None)
         if mesh is not None:
             for node in mesh.peer_nodes():
@@ -1626,8 +1848,23 @@ class Daemon:
         }
 
     def _kvstore_status(self) -> Dict:
-        """status()["kvstore"] of an agent with no backend."""
-        return {"state": "ok", "backend": "none"}
+        """status()["kvstore"]: no longer a bare echo of kv.status() —
+        the outage guard contributes breaker state and the
+        seconds-since-last-successful-op staleness age, so a dead
+        backend can never report 'ok' between calls; while degraded
+        the mode/staleness/journal fields ARE the loud signal."""
+        if self.kv is None:
+            return {"state": "ok", "backend": "none"}
+        inner = getattr(self.kv, "inner", self.kv)
+        out = {"state": self.kv.status(),
+               "backend": type(inner).__name__}
+        if self._kv_guard is not None:
+            out.update(self._kv_guard.report())
+            fb = self.identity_allocator
+            if isinstance(fb, FallbackIdentityAllocator):
+                out["local-identities"] = fb.local_count()
+                out["fallback-allocations"] = fb.fallback_allocations
+        return out
 
     def _controller_health(self) -> Dict:
         failing = self.controllers.failing()
@@ -1668,20 +1905,27 @@ class Daemon:
                 "top-dropped-rules": self.monitor.top_dropped_rules(5)}
 
     def _features(self) -> Dict:
-        """What this agent runs on (bpf/run_probes.sh analog): the torch
-        device, the card's name, and whether the host fast path built.
-        The native probe is the one made at start, so the status path
-        never compiles."""
+        """What this agent runs on (bpf/run_probes.sh analog), keyed as
+        the reference's ``probe_features``: the torch device type as the
+        backend, the device count and name, whether the dense engine's
+        CUDA kernel launches here (``cuda``, the reference's ``pallas``),
+        whether the host fast path built, and the engines on offer with
+        ``dense-cuda`` for ``dense-pallas``.  The native probe is the one
+        made at start, so the status path never compiles."""
         on_card = self.device.type == "cuda"
-        return {"definitive": True, "backend": "torch",
-                "platform_version": torch.__version__,
-                "device": str(self.device),
+        native = self.host_path is not None
+        return {"definitive": True, "backend": self.device.type,
+                "device_count": torch.cuda.device_count() if on_card
+                else 1,
                 "device_kind": torch.cuda.get_device_name(self.device)
                 if on_card else "cpu",
+                "platform_version": torch.__version__,
                 "on_accelerator": on_card,
-                "native_fastpath": self.host_path is not None,
+                "cuda": on_card,
+                "native_fastpath": native,
                 "verdict_engines": ["hash", "dense"] +
-                (["dense-cuda"] if on_card else [])}
+                (["dense-cuda"] if on_card else []) + ["bucket2choice"] +
+                (["host-cache"] if native else [])}
 
     def _endpoint_state_counts(self) -> Dict[str, int]:
         counts: Dict[str, int] = {}
@@ -1785,6 +2029,15 @@ class Daemon:
         self.clustermesh.close()
         if self.dns_poller is not None:
             self.dns_poller.stop()
+        if self._ip_watcher is not None:
+            self._ip_watcher.stop()
+        if self.node_registry is not None:
+            self.node_registry.close()
+        if self._kv_guard is not None:
+            # the allocator's watch, then the guard and the backend it
+            # wraps (the reference leaves both to its caller)
+            self.identity_allocator.close()
+            self._kv_guard.close()
         self.checkpoint_ct()
 
     # ------------------------------------------- conntrack persistence

@@ -10,10 +10,8 @@ path in the reference's api/v1/openapi.yaml. Stdlib http.server —
 the reference serves REST over a unix socket; here TCP on localhost
 for the CLI.
 
-A copy of ``cilium_tpu/daemon/rest.py`` over the port's ``Daemon``.  The
-agent runs with no kvstore backend, so the /kvstore routes answer 503 as
-the reference's do without one; the sharded answers of /flows and the
-node registry come with their slices.
+A copy of ``cilium_tpu/daemon/rest.py`` over the port's ``Daemon``;
+the sharded answers of /flows come with sharding.
 """
 
 from __future__ import annotations
@@ -24,7 +22,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
-from urllib.parse import parse_qs, urlparse
+from urllib.parse import parse_qs, unquote, urlparse
 
 from ..ipam import IPAMError
 from ..labels import LabelArray, parse_label
@@ -229,8 +227,10 @@ class _Handler(BaseHTTPRequestHandler):
                     "endpoints": [ep.model()
                                   for ep in d.endpoints.endpoints()],
                     "services": _service_dump(d),
-                    "nodes": [n.to_model()
-                              for n in d.node_manager.nodes()],
+                    "nodes": [n.to_model() for n in
+                              (d.node_registry.nodes()
+                               if d.node_registry
+                               else d.node_manager.nodes())],
                     "ipam": {"v4-allocated": len(d.ipam),
                              "v6-allocated":
                              len(d.ipam6) if d.ipam6 is not None
@@ -270,7 +270,30 @@ class _Handler(BaseHTTPRequestHandler):
             m = re.fullmatch(r"/kvstore/(.+)", path)
             if m:
                 # cilium kvstore get/set/delete (cilium/cmd/kvstore_*)
-                return self._error(503, "no kvstore attached")
+                if d.kv is None:
+                    return self._error(503, "no kvstore attached")
+                key = unquote(m.group(1))
+                if method == "GET":
+                    if qs.get("prefix", ["0"])[0] in ("1", "true"):
+                        vals = d.kv.list_prefix(key)
+                        return self._send(200, {
+                            k: v.decode("utf-8", "replace")
+                            for k, v in vals.items()})
+                    val = d.kv.get(key)
+                    if val is None:
+                        return self._error(404, "key not found")
+                    return self._send(
+                        200, {key: val.decode("utf-8", "replace")})
+                if method == "PUT":
+                    body = json.loads(self._body() or b"{}")
+                    d.kv.set(key, str(body.get("value", "")).encode())
+                    return self._send(200, {"set": key})
+                if method == "DELETE":
+                    if qs.get("prefix", ["0"])[0] in ("1", "true"):
+                        d.kv.delete_prefix(key)
+                    else:
+                        d.kv.delete(key)
+                    return self._send(200, {"deleted": key})
             if path == "/ipam" and method == "POST":
                 # daemon/ipam.go AllocateIP analog
                 body = json.loads(self._body() or b"{}")
@@ -514,7 +537,9 @@ class _Handler(BaseHTTPRequestHandler):
             if path == "/node" and method == "GET":
                 # cilium node list (pkg/node)
                 return self._send(200, [
-                    n.to_model() for n in d.node_manager.nodes()])
+                    n.to_model() for n in
+                    (d.node_registry.nodes() if d.node_registry
+                     else d.node_manager.nodes())])
             if path == "/map" and method == "GET":
                 # cilium map list / bpf map show analog
                 return self._send(200, d.datapath.map_inventory())

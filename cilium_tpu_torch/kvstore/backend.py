@@ -1,8 +1,6 @@
 """Backend interface for the control-plane kvstore.
 
-Copy of ``cilium_tpu/kvstore/backend.py`` without its module-level
-client selection (``setup_client`` and the backend registry), which
-comes with the backends.
+A whole copy of ``cilium_tpu/kvstore/backend.py``.
 
 Mirrors the operation set of the reference's ``BackendOperations``
 (pkg/kvstore/backend.go:86-146): plain gets/sets, atomic CreateOnly /
@@ -166,3 +164,46 @@ class BackendOperations:
 
     def _unlock(self, path: str, token: str) -> None:
         raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# Module-level client (reference: pkg/kvstore/client.go Get/setup pattern).
+
+_registry: Dict[str, type] = {}
+_client: Optional[BackendOperations] = None
+_client_lock = threading.Lock()
+
+
+def register_backend(name: str, cls: type) -> None:
+    _registry[name] = cls
+
+
+def setup_client(backend_name: str, **opts) -> BackendOperations:
+    """Select and instantiate the process-global kvstore client."""
+    global _client
+    with _client_lock:
+        if _client is not None:
+            _client.close()
+        cls = _registry[backend_name]
+        _client = cls(**opts)
+        return _client
+
+
+def setup_dummy() -> BackendOperations:
+    """In-process backend for tests (reference: dummy.go:18 SetupDummy)."""
+    return setup_client("in-memory")
+
+
+def get_client() -> BackendOperations:
+    if _client is None:
+        raise RuntimeError("kvstore client not configured; "
+                           "call setup_client()/setup_dummy() first")
+    return _client
+
+
+def close_client() -> None:
+    global _client
+    with _client_lock:
+        if _client is not None:
+            _client.close()
+            _client = None

@@ -9,17 +9,11 @@ datapath returns one event code per packet; the hub aggregates counts
 samples out to in-process subscribers (the CLI's ``monitor`` command).
 
 A copy of ``cilium_tpu/monitor.py``.  ``ingest_batch`` also takes the
-engine's torch tensors (read to the host once per call), and the
-length-prefixed JSON framing of the cross-process fan-out
-(``send_frame`` / ``recv_frame``, copied from
-``cilium_tpu/kvstore/server.py``) sits here beside the monitor.
+engine's torch tensors (read to the host once per call).
 """
 
 from __future__ import annotations
 
-import json
-import socket
-import struct
 import threading
 import time
 from dataclasses import dataclass, field
@@ -35,7 +29,7 @@ from .utils.metrics import (DROP_COUNT, FORWARD_COUNT,
                             L7_FAST_VERDICTS, POLICY_RULE_DROPS,
                             POLICY_VERDICT_TIERS, THREAT_SCORES,
                             THREAT_VERDICTS)
-from .utils.netio import recv_exact as _recv_exact
+from .kvstore.server import recv_frame, send_frame
 
 # label-cardinality guard: at most this many DISTINCT denied keys are
 # admitted into the per-rule drop counter per ingested batch (the
@@ -410,31 +404,6 @@ class MonitorHub:
 # served over TCP with the kvstore framing: one writer thread + bounded
 # queue per subscriber, overflow counted and dropped.
 
-
-def send_frame(sock: socket.socket, obj: dict,
-               lock: Optional[threading.Lock] = None) -> None:
-    """One length-prefixed JSON frame (the kvstore wire framing)."""
-    data = json.dumps(obj, separators=(",", ":")).encode()
-    frame = struct.pack(">I", len(data)) + data
-    if lock:
-        with lock:
-            sock.sendall(frame)
-    else:
-        sock.sendall(frame)
-
-
-def recv_frame(sock: socket.socket) -> Optional[dict]:
-    """The next frame, or None at a clean close."""
-    hdr = _recv_exact(sock, 4)
-    if hdr is None:
-        return None
-    (length,) = struct.unpack(">I", hdr)
-    if length > (64 << 20):
-        raise ValueError(f"frame too large: {length}")
-    body = _recv_exact(sock, length)
-    if body is None:
-        return None
-    return json.loads(body)
 
 def _monitor_event_dict(ev: MonitorEvent) -> Dict:
     return {"seq": ev.seq, "timestamp": ev.timestamp, "code": ev.code,

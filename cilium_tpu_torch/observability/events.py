@@ -5,8 +5,9 @@ Copy of ``cilium_tpu/observability/events.py`` with the event types of
 the serving tier (supervisor mode flips, breaker trips, rebuilds,
 recoveries and overload watermark crossings) and of the agent (drift
 audits, failing controllers, map pressure, threat mode and model pushes,
-traffic analytics); the kvstore's wait for the kvstore backends, and the
-``DEGRADED_SIGNALS`` lint map with them.  Every transition lands
+traffic analytics) and of the kvstore outage guard, and the
+``DEGRADED_SIGNALS`` lint map over them (without the sharded
+dataplane's series, which come with sharding).  Every transition lands
 as one event stamped with a monotonic sequence number, wall time and
 the owning shard, so an incident replays in order.  ``record()`` is a
 lock, a list append and one counter increment; emitters sit on
@@ -45,6 +46,9 @@ EVENT_DATAPLANE_FAIL_STATIC = "dataplane-fail-static"
 EVENT_DATAPLANE_REBUILD = "dataplane-rebuild"
 EVENT_DATAPLANE_RECOVERED = "dataplane-recovered"
 EVENT_SERVING_OVERLOAD = "serving-overload"
+EVENT_KVSTORE_DEGRADED = "kvstore-degraded"
+EVENT_KVSTORE_RECONCILING = "kvstore-reconciling"
+EVENT_KVSTORE_RECOVERED = "kvstore-recovered"
 EVENT_DRIFT_AUDIT = "drift-audit"
 EVENT_CONTROLLER_FAILING = "controller-failing"
 EVENT_MAP_PRESSURE = "map-pressure-warning"
@@ -72,6 +76,15 @@ EVENT_TYPES: Dict[str, str] = {
     EVENT_SERVING_OVERLOAD:
         "a serving lane crossed its admission watermark pair (attrs: "
         "state on/off, pending weight)",
+    EVENT_KVSTORE_DEGRADED:
+        "the kvstore outage guard flipped to degraded — consumers pin "
+        "last-known-good state, mutations journal",
+    EVENT_KVSTORE_RECONCILING:
+        "kvstore reconnect detected: journal replay + relist-and-diff "
+        "repair started",
+    EVENT_KVSTORE_RECOVERED:
+        "kvstore reconcile completed and mode returned to ok (attrs: "
+        "replayed, repaired, outage seconds)",
     EVENT_DRIFT_AUDIT:
         "a drift-audit sweep changed the compiler-correctness verdict "
         "or found divergences (attrs: status, divergences)",
@@ -97,6 +110,62 @@ EVENT_TYPES: Dict[str, str] = {
         "the analytics scan view flagged an identity probing many "
         "distinct destination ports in one epoch (attrs: identity, "
         "ports, packets)",
+}
+
+# ---------------------------------------------------------------------------
+# Degraded-signal coverage map: {status() section: (event types, metric
+# names)}.  The loudness lint asserts every status section that can
+# report a degraded condition appears here, every named event type is
+# declared above, and every named metric is registered — a new failure
+# mode cannot ship silent.
+# ---------------------------------------------------------------------------
+
+DEGRADED_SIGNALS: Dict[str, Dict[str, tuple]] = {
+    "dataplane": {
+        "events": (EVENT_DATAPLANE_TRIP, EVENT_DATAPLANE_DEGRADED,
+                   EVENT_DATAPLANE_FAIL_STATIC, EVENT_DATAPLANE_REBUILD,
+                   EVENT_DATAPLANE_RECOVERED, EVENT_SERVING_OVERLOAD),
+        "metrics": ("cilium_tpu_dataplane_mode",
+                    "cilium_tpu_dataplane_device_faults_total",
+                    "cilium_tpu_dataplane_fail_static_verdicts_total",
+                    "cilium_tpu_dataplane_recoveries_total",
+                    "cilium_tpu_dataplane_overloaded"),
+    },
+    "kvstore": {
+        "events": (EVENT_KVSTORE_DEGRADED, EVENT_KVSTORE_RECONCILING,
+                   EVENT_KVSTORE_RECOVERED),
+        "metrics": ("cilium_tpu_kvstore_mode",
+                    "cilium_tpu_kvstore_staleness_seconds",
+                    "cilium_tpu_kvstore_reconcile_total"),
+    },
+    "controller-health": {
+        "events": (EVENT_CONTROLLER_FAILING,),
+        "metrics": ("cilium_tpu_controller_runs_total",),
+    },
+    "provenance": {
+        "events": (EVENT_DRIFT_AUDIT,),
+        "metrics": ("cilium_tpu_policy_drift_total",
+                    "cilium_tpu_policy_drift_audit_runs_total"),
+    },
+    "map-pressure": {
+        "events": (EVENT_MAP_PRESSURE,),
+        "metrics": ("cilium_tpu_map_pressure",
+                    "cilium_tpu_map_shard_pressure"),
+    },
+    "threat": {
+        "events": (EVENT_THREAT_MODE, EVENT_THREAT_MODEL),
+        "metrics": ("cilium_tpu_threat_verdicts_total",
+                    "cilium_tpu_threat_score",
+                    "cilium_tpu_threat_model_generation"),
+    },
+    "analytics": {
+        "events": (EVENT_TRAFFIC_HEAVY_HITTER,
+                   EVENT_TRAFFIC_SCAN_SUSPECT),
+        "metrics": ("cilium_tpu_analytics_top_bytes",
+                    "cilium_tpu_analytics_drains_total",
+                    "cilium_tpu_analytics_queries_total",
+                    "cilium_tpu_analytics_scan_suspects"),
+    },
 }
 
 @dataclass(frozen=True)

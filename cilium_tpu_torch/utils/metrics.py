@@ -4,8 +4,8 @@ Copy of ``cilium_tpu/utils/metrics.py``'s registry (counters, gauges,
 histograms, text exposition) with only the series the port writes: the
 endpoint build queue's, the daemon's policy and identity gauges, the
 verdict outcomes and their provenance, the drift audit, the dataplane
-supervision series, the controllers', Hubble's and the optional
-stages' (threat, analytics, L7 fast).  The kvstore, sharded-dataplane
+supervision series, the controllers', Hubble's, the kvstore's and the
+optional stages' (threat, analytics, L7 fast).  The sharded-dataplane
 and federation series wait for their modules.  The serving, SLO, stage
 and flight-recorder series are registered by their own modules.
 """
@@ -324,6 +324,28 @@ FORWARD_COUNT = registry.counter(
     "forward_count_total", "Forwarded packets")
 IDENTITY_COUNT = registry.gauge(
     "identity_count", "Number of security identities allocated")
+KVSTORE_OPERATIONS = registry.counter(
+    "kvstore_operations_total", "kvstore operations by kind")
+
+# Control-plane survivability series (kvstore/outage.py): the outage
+# detector's mode/staleness view, the degraded-mode write journal, and
+# the reconnect reconcile accounting — the control-plane twin of the
+# dataplane_mode / fail-static series above.
+KVSTORE_MODE = registry.gauge(
+    "kvstore_mode",
+    "kvstore client mode (0 ok / 1 degraded / 2 reconciling)")
+KVSTORE_STALENESS = registry.gauge(
+    "kvstore_staleness_seconds",
+    "Seconds since the last successful kvstore operation (0 while the "
+    "last operation succeeded)")
+KVSTORE_JOURNAL_DEPTH = registry.gauge(
+    "kvstore_journal_depth",
+    "Mutations queued in the degraded-mode write journal awaiting "
+    "reconnect replay")
+KVSTORE_RECONCILE = registry.counter(
+    "kvstore_reconcile_total",
+    "Reconnect reconciles (journal replay + local-key repair) by "
+    "result")
 # Controller health (utils/controller.py): per-run outcome accounting
 # behind the top-level controller-health degraded signal in status().
 CONTROLLER_RUNS = registry.counter(

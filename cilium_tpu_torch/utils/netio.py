@@ -1,8 +1,10 @@
-"""Byte-exact socket reads of the verdict service.
+"""Shared socket byte-exact IO.
 
-Copy of ``recv_exact`` and ``recv_exact_within`` from
-``cilium_tpu/utils/netio.py``: linear-time reads into a preallocated
-buffer with ``recv_into``.
+A whole copy of ``cilium_tpu/utils/netio.py``.
+
+One definition of the exact-read loop used by every TCP surface
+(kvstore transport, verdict service) — linear-time via a preallocated
+bytearray + recv_into, not O(n^2) bytes concatenation.
 """
 
 from __future__ import annotations
@@ -10,6 +12,28 @@ from __future__ import annotations
 import socket
 import time
 from typing import Optional
+
+
+def teardown_http_conn(conn) -> None:
+    """Kill a (possibly streaming) http.client.HTTPConnection without
+    blocking, PERMANENTLY: close() drains any open chunked response
+    first, which blocks forever on a live stream — shutdown() the raw
+    socket so the drain reads EOF instantly.  auto_open is cleared
+    because http.client otherwise silently RECONNECTS on the next
+    request over a closed conn, resurrecting a socket its killer can
+    no longer reach (the racing user gets NotConnected instead).
+    Safe on a never-connected conn."""
+    conn.auto_open = 0
+    sock = getattr(conn, "sock", None)
+    if sock is not None:
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+    try:
+        conn.close()
+    except OSError:
+        pass
 
 
 def recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:

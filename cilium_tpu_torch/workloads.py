@@ -1403,9 +1403,8 @@ class PolicyRun:
     the proxy, apply, ``sync_endpoint``, ``refresh_policy(rev)``) and
     the ipcache's debounced LPM reload as ``:324-331``.  The daemon
     itself is ported (``daemon/daemon.py``), and ``chip_smoke.py`` holds
-    it against this run.  ``add_peer`` stands in for the kvstore's remote
-    identities and ipcache entries until the kvstore backends are
-    ported; the run goes with them.
+    it against this run.  ``add_peer`` enters a remote workload as the
+    kvstore's watchers do (the agent's come through the store).
 
     Builds run on the manager's builder threads; a build that raises
     leaves its endpoint ``not-ready`` (the reference's worker swallows

@@ -250,7 +250,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert 'chip_smoke' in sys.modules and len(mods) >= 15, mods\n"
         "agent = ['cilium_tpu_torch.' + m for m in (\n"
         "    'daemon', 'daemon.rest', 'cli', 'monitor', 'hubble',\n"
-        "    'clustermesh')]\n"
+        "    'clustermesh', 'kvstore.etcd', 'kvstore.outage',\n"
+        "    'kvstore.serve')]\n"
         "assert set(agent) <= set(mods), sorted(set(agent) - set(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -589,8 +589,6 @@ def test_old_state_dir_restores_in_both(tmp_path):
 # -------------------------------------------------------------- refusals
 
 def test_later_slices_are_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8.1"):
-        Daemon(kvstore_backend=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
         Daemon(config=DaemonConfig(dataplane_shards=2), device="cpu")
     d = start_agent(PORT, str(tmp_path / "s"))
@@ -599,6 +597,52 @@ def test_later_slices_are_refused_by_name(tmp_path):
             d.serve_xds()
     finally:
         d.shutdown()
+
+
+def test_a_kvstore_backend_is_taken_as_in_the_reference():
+    """``Daemon(kvstore_backend=...)``: the agent wraps the backend in
+    the outage guard, allocates identities through the store and
+    reports the reference's kvstore status for the same operations."""
+    from cilium_tpu.kvstore.memory import InMemoryBackend as RefMemory
+    from cilium_tpu_torch.kvstore.identity_allocator import \
+        DistributedIdentityAllocator
+    from cilium_tpu_torch.kvstore.memory import InMemoryBackend
+    statuses, agents = [], []
+    try:
+        for pkg, backend in ((REF, RefMemory()), (PORT, InMemoryBackend())):
+            cfg = pkg["DaemonConfig"](state_dir="",
+                                      ct_checkpoint_interval_s=0)
+            kw = {"device": "cpu"} if pkg is PORT else {}
+            d = pkg["Daemon"](config=cfg, kvstore_backend=backend,
+                              node_name="n1", **kw)
+            agents.append(d)
+            d.endpoint_create(1, ipv4="10.9.0.1", labels=["k8s:app=kv"])
+            d.register_node("192.168.9.1", "10.9.0.0/24")
+            statuses.append(d.status()["kvstore"])
+        assert isinstance(agents[1].identity_allocator,
+                          DistributedIdentityAllocator)
+        assert agents[1].kv.inner.get(
+            "cilium/state/nodes/v1/default/n1") is not None
+        assert statuses[1] == statuses[0]
+        assert statuses[1]["backend"] == "InMemoryBackend"
+    finally:
+        shutdown_all(*agents)
+
+
+def test_features_match_the_reference(agents):
+    """``status()["features"]`` keys the reference's ``probe_features``
+    does, with ``cuda`` for ``pallas``, and offers the same engines with
+    ``dense-cuda`` for ``dense-pallas``."""
+    _st, ref, port = agents
+    f_ref, f_port = ref.status()["features"], port.status()["features"]
+    rename = {"pallas": "cuda"}
+    assert sorted(f_port) == sorted(rename.get(k, k) for k in f_ref)
+    engines = [{"dense-pallas": "dense-cuda"}.get(e, e)
+               for e in f_ref["verdict_engines"]]
+    assert f_port["verdict_engines"] == engines
+    # the reference counts the test session's virtual JAX devices
+    assert f_port["device_count"] == 1
+    assert f_port["on_accelerator"] is f_ref["on_accelerator"] is False
 
 
 def test_daemon_without_a_device_needs_the_card():

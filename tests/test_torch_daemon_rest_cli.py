@@ -326,8 +326,7 @@ def test_cli_local_commands_match(tmp_path):
 
 def test_agent_refuses_later_slices():
     base = ["agent", "--device", "cpu", "--api-port", "0"]
-    for extra, item in ((["--kvstore", "etcd"], "item 8.1"),
-                        (["--k8s-api-server", "http://x"], "item 8.4"),
+    for extra, item in ((["--k8s-api-server", "http://x"], "item 8.4"),
                         (["--docker-socket", "/x.sock"], "item 8.4")):
         with pytest.raises(NotImplementedError, match=item):
             cli_main(base + extra)
@@ -355,3 +354,35 @@ def test_agent_stops_when_the_verdict_service_cannot_start():
         with pytest.raises(SystemExit, match="verdict service failed"):
             cli_main(["agent", "--device", "cpu", "--api-port", "0",
                       "--verdict-port", str(port)])
+
+
+@pytest.mark.parametrize("stop", ["interrupt", "verdict-service"])
+def test_agent_leaves_no_closed_store_client_behind(stop, monkeypatch):
+    """``agent --kvstore in-memory``: the agent's shutdown closes the
+    store client ``setup_client`` made, and the command then drops the
+    process-global reference, so ``get_client()`` never hands out a
+    closed client after the agent stops, whether it was interrupted or
+    stopped because its verdict service could not start."""
+    import types
+
+    import cilium_tpu_torch.cli as cli_mod
+    from cilium_tpu_torch.kvstore.backend import get_client
+
+    def interrupted(_s):
+        raise KeyboardInterrupt
+
+    argv = ["agent", "--device", "cpu", "--api-port", "0",
+            "--kvstore", "in-memory"]
+    with socket.socket() as taken:
+        if stop == "interrupt":
+            monkeypatch.setattr(cli_mod, "time", types.SimpleNamespace(
+                sleep=interrupted))
+            assert cli_main(argv) == 0
+        else:
+            taken.bind(("127.0.0.1", 0))
+            taken.listen(1)
+            with pytest.raises(SystemExit, match="verdict service"):
+                cli_main(argv + ["--verdict-port",
+                                 str(taken.getsockname()[1])])
+    with pytest.raises(RuntimeError, match="not configured"):
+        get_client()

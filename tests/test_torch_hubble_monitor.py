@@ -237,8 +237,8 @@ def test_relay_answers_match(driven):
 
 def test_monitor_stream_matches():
     """``MonitorServer`` replays the ring, then follows live events, in
-    both packages; the port frames with its own copy of the kvstore's
-    framing."""
+    both packages, each framing with its own kvstore server's
+    frames."""
     streams = []
     for pkg in (REF, PORT):
         hub = pkg["monitor"].MonitorHub(ring_capacity=64)
