@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's verdict and serving paths, its
-single-node agent and its agents joined through the kvstore, on one
-NVIDIA card.
+single-node agent, its agents joined through the kvstore and its
+sharded dataplane, on one NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -207,9 +207,36 @@ script exits non-zero:
    to ``ok`` with the identity promoted, the degraded, reconciling and
    recovered flight-recorder events, and that endpoint's traffic and
    map states equal to R's with the same endpoint added.
-14. the kernels line (the dense kernel's launches on the config-2, L7,
-   stage, serving, agent and kvstore paths, 0, beside those of v4, v6
-   and the policy path), the card's name and power limit from
+14. the sharded dataplane (``phase_sharded``): four ep-shards on the
+   card (``ShardedDatapath(n_shards=4, devices=[cuda:0] * 4)``, a
+   2**20-slot CT each) over the full-width v4 state, flows at the
+   daemon's defaults and provenance on.  ``sharded-twin``: the same
+   plane on the card and on the CPU (``devices=[cpu] * 4``), 2**16 rows
+   through every shard's ``process_packed`` at one clock, every output,
+   provenance, CT field, counter and flow-table lane compared.
+   ``sharded-parity``: from empty CT tables, 2**20 rows of the v4 pool
+   through ``classify_records`` against one engine's lane: verdict and
+   identity on every row whose 5-tuple stays on one shard, per-entry
+   counters by global slot, the union of the shards' live CT keys, and
+   the count of rows whose 5-tuple crosses shards (the CT key carries
+   no endpoint).  ``sharded-kill``: a fatal launch fault on shard 1
+   (``DeviceFaultInjector``): the status names ``[1]``, the siblings
+   equal the single engine with closed breakers, shard 1 serves
+   fail-static with its established flows kept, and gated recovery
+   restores ``ok``; seconds to fail-static and to recovery.
+   ``sharded-timing``: ``classify_records`` at 2**15 and 2**20 rows,
+   sharded against one engine (median, p99, samples, records/s, the
+   card's busy share).  ``sharded-dfa``: the config-3 HTTP DFA over
+   1,024-byte request lines, ``dfa_scan_sharded`` over four chunks on
+   the card against the serial ``dfa_scan``, 0 mismatches, with ``S``
+   and both times.  ``sharded-agent``: ``Daemon(DaemonConfig(
+   dataplane_shards=4))`` on the card over REST on the propagation
+   state: geometry, every endpoint's rows on its owning shard only,
+   ``/flows?shard=k`` shard-attributed, a shard fault named in the
+   status until recovery.
+15. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage, serving, agent, kvstore and sharded paths, 0, beside those of
+   v4, v6 and the policy path), the card's name and power limit from
    nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -277,8 +304,12 @@ from cilium_tpu_torch.node import Node, NodeAddress
 from cilium_tpu_torch.observability import stages
 from cilium_tpu_torch.ops import dense_verdict as dv
 from cilium_tpu_torch.ops.bucket_ops import BucketVerdictEngine
+from cilium_tpu_torch.ops import dfa_ops
 from cilium_tpu_torch.ops.dfa_engine import DFAEngine
+from cilium_tpu_torch.ops.dfa_parallel import dfa_scan_sharded
 from cilium_tpu_torch.ops.lpm_ops import lpm_lookup
+from cilium_tpu_torch.parallel import ShardedDatapath, make_mesh
+from cilium_tpu_torch.parallel.mesh import DP_AXIS
 from cilium_tpu_torch.policy.api import Decision, PortRuleHTTP
 from cilium_tpu_torch.policy.jsonio import rules_from_json
 from cilium_tpu_torch.policy.mapstate import (PolicyKey, PolicyMapState,
@@ -4056,6 +4087,541 @@ def phase_kvstore(dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded dataplane
+# ---------------------------------------------------------------------------
+
+SHARDS = 4
+SHARDED_CT_SLOTS = 1 << 20          # per shard
+SHARDED_BATCH = 1 << 20
+SHARDED_TWIN = 1 << 16
+SHARDED_KILL = 1 << 14              # pool records of each kill-leg chunk
+SHARDED_VICTIM = 1
+SHARDED_TIMED = {1 << 15: 20, 1 << 20: 5}
+SHARDED_AGENT_BATCH = 1 << 16
+SHARDED_WAIT_S = 60.0
+DFA_ROWS = 4096
+DFA_LEN = 1024
+DFA_CHUNK_BYTES = 4 << 30           # a chunk's [B, L/N, S] functions
+DFA_TIMED = 5
+
+
+def shard_rows(packed: np.ndarray, n: int):
+    """(row index, [10, rows] sub-batch with shard-local endpoint slots)
+    for each shard: ``ShardedServingLane``'s split (``endpoint % n``,
+    local slot ``endpoint // n``)."""
+    ep_row = PACKED_FIELDS.index("endpoint")
+    out = []
+    for k in range(n):
+        idx = np.flatnonzero(packed[ep_row] % n == k)
+        sub = np.ascontiguousarray(packed[:, idx])
+        sub[ep_row] //= n
+        out.append((idx, sub))
+    return out
+
+
+def soa_of(packed: np.ndarray) -> dict:
+    return {f: np.ascontiguousarray(packed[i])
+            for i, f in enumerate(PACKED_FIELDS)}
+
+
+def cross_shard_rows(packed: np.ndarray, n: int) -> np.ndarray:
+    """Rows whose 5-tuple, either way round, is also carried on an
+    endpoint of another shard in ``packed``: established in one shard's
+    CT and new in the other's (the CT key has no endpoint)."""
+    f = {name: packed[i].astype(np.int64) & 0xFFFFFFFF
+         for i, name in enumerate(PACKED_FIELDS)}
+    a = (f["saddr"] << 16) | f["sport"]
+    b = (f["daddr"] << 16) | f["dport"]
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    keys = np.stack([lo, hi, f["proto"]], axis=1)
+    _, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    owner = f["endpoint"] % n
+    first = np.full(inv.max() + 1 if inv.size else 0, -1, np.int64)
+    first[inv[::-1]] = owner[::-1]
+    mixed = np.zeros(first.shape[0], bool)
+    np.logical_or.at(mixed, inv, owner != first[inv])
+    return mixed[inv]
+
+
+def balanced_batch(state4, per_shard: int, n: int, seed: int) -> np.ndarray:
+    """[10, per_shard * n] rows of the v4 pool, in pool order, exactly
+    ``per_shard`` on each shard: with a power of two on every lane and on
+    the single engine's, no lane pads its batch (pad rows repeat a
+    record and count it again in the per-entry counters)."""
+    packed = next(v4_serving_packets(state4, per_shard * n * 5 // 4,
+                                     n_flows=V4_FLOWS, seed=seed))
+    owner = packed[PACKED_FIELDS.index("endpoint")] % n
+    keep = np.zeros(packed.shape[1], bool)
+    for k in range(n):
+        idx = np.flatnonzero(owner == k)
+        if idx.size < per_shard:
+            raise AssertionError(f"sharded: {idx.size} rows for shard {k}")
+        keep[idx[:per_shard]] = True
+    return np.ascontiguousarray(packed[:, keep])
+
+
+def ct_live_keys(dp) -> dict:
+    """{(k0, k1, k2, k3): slot} of the live keys of an engine's v4 CT."""
+    st = dp.ct.state[:4, :dp.ct.slots].cpu().numpy()
+    live = np.flatnonzero(st[3] != 0)
+    return dict(zip(map(tuple, st[:, live].T.tolist()), live.tolist()))
+
+
+def race_lost(dps, missing) -> int:
+    """How many of ``missing`` (CT keys another plane created from the
+    same rows) lost a same-batch slot race in the engines ``dps``: from
+    an empty table a create's first choice is its window's first slot,
+    and one create wins a slot a round (two rounds), so a key that lost
+    finds that slot held by another key of the batch.  Keys missing for
+    any other reason are not counted."""
+    if not missing:
+        return 0
+    keys = torch.as_tensor(np.array(sorted(missing), np.int32))
+    lost = np.zeros(keys.shape[0], bool)
+    for dp in dps:
+        ct = dp.ct
+        k = keys.to(ct.state.device)
+        first = conntrack._probe_idx(k[:, 0], k[:, 1], k[:, 2], k[:, 3],
+                                     ct.slots, ct.max_probe)[:, 0].long()
+        held = ct.state[:4, first].T
+        lost |= ((held[:, 3] != 0) & (held != k).any(dim=1)).cpu().numpy()
+    return int(lost.sum())
+
+
+def entry_counters(tables, counters, n: int, k: int) -> dict:
+    """{(global endpoint slot, key id, key meta): (packets, bytes)} of an
+    engine's nonzero per-entry counters; shard ``k`` of ``n`` (one
+    engine: 0 of 1)."""
+    meta = tables.key_meta.cpu().numpy()
+    kid = tables.key_id.cpu().numpy()
+    slots = meta.shape[1]
+    pk = counters.packets.cpu().numpy()
+    by = counters.bytes.cpu().numpy()
+    out = {}
+    for i in np.flatnonzero(pk).tolist():
+        e, s = divmod(i, slots)
+        out[(e * n + k, int(kid[e, s]), int(meta[e, s]))] = (int(pk[i]),
+                                                              int(by[i]))
+    return out
+
+
+def sharded_twin(plane, cpu_plane, packed: np.ndarray, now: int) -> dict:
+    """The same rows through every shard's ``process_packed`` on the card
+    and on the CPU at one clock: mismatches in every output, provenance,
+    CT field (``mismatches``' slots), counter and flow-table lane."""
+    bad = {}
+
+    def add(name, x, y):
+        x, y = np.asarray(x), np.asarray(y)
+        bad[name] = bad.get(name, 0) + (int((x != y).sum())
+                                        if x.shape == y.shape else -1)
+    for k, (idx, sub) in enumerate(shard_rows(packed, plane.n_shards)):
+        g, c = plane.shards[k], cpu_plane.shards[k]
+        if idx.size:
+            outs_g = g.process_packed(torch.as_tensor(sub, device=g.device),
+                                      now=now)
+            outs_c = c.process_packed(torch.as_tensor(sub), now=now)
+            for name, x, y in zip(("verdict", "event", "identity"),
+                                  outs_g[:3], outs_c[:3]):
+                add(name, x.cpu(), y)
+            for name, x, y in zip(outs_g[3]._fields, outs_g[3], outs_c[3]):
+                add(f"nat.{name}", x.cpu(), y)
+            for name, x, y in zip(("match_slot", "tier"),
+                                  g.last_provenance, c.last_provenance):
+                add(f"provenance.{name}", x.cpu(), y)
+        # the sentinel included, the discard slot (where losing and
+        # masked writes land, in any order on the card) left out
+        n = g.ct.slots + 1
+        for i, name in enumerate(conntrack.FIELDS):
+            add(f"ct.{name}", g.ct.state[i, :n].cpu(), c.ct.state[i, :n])
+        add("counters.packets", g.counters.packets.cpu(), c.counters.packets)
+        add("counters.bytes", g.counters.bytes.cpu(), c.counters.bytes)
+        for name, x, y in zip(("flows.keys", "flows.counters"),
+                              g.flows.state, c.flows.state):
+            add(name, x.cpu(), y)
+    return bad
+
+
+def sharded_parity(plane, single, packed: np.ndarray) -> dict:
+    """``packed`` through the sharded plane's ``classify_records`` and
+    through the single engine's lane: verdict and identity on the rows
+    whose 5-tuple stays on one shard, per-entry counters by global slot,
+    and the union of the shards' live CT keys."""
+    n = packed.shape[1]
+    cross = cross_shard_rows(packed, plane.n_shards)
+    t0 = time.perf_counter()
+    v_s, i_s = plane.classify_records(soa_of(packed), n)
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v_o, i_o = single.serving().submit_records(soa_of(packed), n).result(
+        timeout=SHARDED_WAIT_S)
+    single_s = time.perf_counter() - t0
+    keep = ~cross
+    got_c = {}
+    for k, sh in enumerate(plane.shards):
+        got_c.update(entry_counters(sh._tables.datapath, sh.counters,
+                                    plane.n_shards, k))
+    want_c = entry_counters(single._tables.datapath, single.counters, 1, 0)
+    keys_s = set().union(*(ct_live_keys(sh) for sh in plane.shards))
+    keys_o = set(ct_live_keys(single))
+    only_s, only_o = keys_s - keys_o, keys_o - keys_s
+    lost_o = race_lost([single], only_s)
+    lost_s = race_lost(plane.shards, only_o)
+    return {"rows": n, "cross_shard_rows": int(cross.sum()),
+            "mismatches": {
+                "verdict": int((v_s[keep] != v_o[keep]).sum()),
+                "identity": int((i_s[keep] != i_o[keep]).sum()),
+                "counters": len(set(got_c.items()) ^ set(want_c.items())),
+                "ct_keys_unexplained": len(only_s) - lost_o +
+                len(only_o) - lost_s},
+            "ct_keys_only_sharded": len(only_s),
+            "ct_keys_only_single": len(only_o),
+            "ct_keys_race_lost_single": lost_o,
+            "ct_keys_race_lost_sharded": lost_s,
+            "verdict_on_cross_rows_differ": int(
+                (v_s[cross] != v_o[cross]).sum()),
+            "ct_keys": len(keys_o), "counted_entries": len(want_c),
+            "allowed_share": float((v_o >= 0).mean()),
+            "sharded_s": sharded_s, "single_s": single_s}
+
+
+def sharded_kill(plane, single, state4) -> dict:
+    """A fatal launch fault on one shard's lane: the status names it, the
+    siblings stay equal to the single engine with their breakers closed,
+    the victim serves fail-static with its established flows kept, and
+    gated recovery brings it back."""
+    n = plane.n_shards
+    victim = SHARDED_VICTIM
+    lane = plane.serving()
+    single_lane = single.serving()
+    sup = lane.lanes[victim].supervisor
+    pool = RecordPool(state4, seed=43)
+    vips = {int(np.uint32(s.vip)) for s in state4.services}
+
+    def both(c):
+        rows = len(c["sport"])
+        t = lane.submit_records({k: v.copy() for k, v in c.items()}, rows)
+        v, i = t.result(timeout=SHARDED_WAIT_S)
+        if t.error is not None:
+            raise AssertionError(f"sharded-kill: {t.error!r}")
+        vo, io_ = single_lane.submit_records(
+            {k: v.copy() for k, v in c.items()}, rows).result(
+            timeout=SHARDED_WAIT_S)
+        return v, i, vo, io_
+
+    c1 = pool.chunk(SHARDED_KILL)
+    v1, i1, vo1, io1 = both(c1)
+    before_bad = int((v1 != vo1).sum() + (i1 != io1).sum())
+    sup.oracle.refresh()
+    inj = DeviceFaultInjector()
+    sup.install_fault_hook(inj)
+    inj.fail_launch(times=1, fatal=True)
+    kill = pool.chunk(4096)
+    kill["endpoint"] = (kill["endpoint"] // n * n + victim).astype(np.int32)
+    t0 = time.perf_counter()
+    t = lane.submit_records(kill, 4096)
+    t.result(timeout=SHARDED_WAIT_S)
+    fail_static_s = time.perf_counter() - t0
+    st = plane.supervision_status()
+    degraded = {"mode": st["mode"], "degraded_shards": st["degraded-shards"],
+                "ticket_error": repr(t.error) if t.error else None}
+
+    siblings = {k: lane.lanes[k].batches for k in range(n) if k != victim}
+    fresh = pool.chunk(SHARDED_KILL)
+    v2, i2, vo2, io2 = both(fresh)
+    mask = fresh["endpoint"] % n != victim
+    sib_bad = {"verdict": int((v2[mask] != vo2[mask]).sum()),
+               "identity": int((i2[mask] != io2[mask]).sum())}
+    breakers = {k: lane.lanes[k].supervisor.breaker.state for k in siblings}
+    launched = all(lane.lanes[k].batches > b for k, b in siblings.items())
+
+    # established flows of the victim: its allowed rows of c1 that are
+    # not service VIPs (fail-static answers policy, not NAT)
+    t = lane.submit_records({k: v.copy() for k, v in c1.items()},
+                            SHARDED_KILL)
+    vs, _ = t.result(timeout=SHARDED_WAIT_S)
+    daddr = c1["daddr"].view(np.uint32)
+    est = (c1["endpoint"] % n == victim) & (v1 >= 0) & \
+        ~np.isin(daddr, np.fromiter(vips, np.uint32, len(vips)))
+    est_bad = int((vs[est] != v1[est]).sum())
+    static_records = sup.fail_static_records
+
+    inj.heal()
+    t0 = time.perf_counter()
+    while sup.mode != "ok" and time.perf_counter() - t0 < SHARDED_WAIT_S:
+        lane.submit_records({k: v.copy() for k, v in kill.items()},
+                            4096).result(timeout=SHARDED_WAIT_S)
+        time.sleep(0.01)
+    recovery_s = time.perf_counter() - t0
+    return {"victim": victim, "degraded": degraded,
+            "seconds_to_fail_static": fail_static_s,
+            "sibling_rows": int(mask.sum()), "sibling_mismatches": sib_bad,
+            "sibling_breakers": breakers, "siblings_launched": launched,
+            "before_fault_mismatches": before_bad,
+            "established_rows": int(est.sum()),
+            "established_changed": est_bad,
+            "fail_static_records": static_records,
+            "seconds_to_recovery": recovery_s, "mode_after": sup.mode,
+            "plane_mode_after": plane.supervision_status()["mode"]}
+
+
+def sharded_dfa(dev) -> dict:
+    """The config-3 HTTP DFA over 1,024-byte request lines, the payload
+    axis split over four chunks on the card, against the serial scan."""
+    eng = HTTPPolicyEngine(HTTP_RULES, device="cpu")
+    compiled = eng._combined
+    table = torch.as_tensor(compiled.table, device=dev)
+    s = int(table.shape[0])
+    chunk = DFA_LEN // SHARDS
+    rows = min(DFA_ROWS, DFA_CHUNK_BYTES // (chunk * s * table.element_size()))
+    reqs = config3_requests(rows)
+    lines = []
+    for r in reqs:
+        head = http_request_line(r)
+        pad = DFA_LEN - len(head.encode()) - 1
+        lines.append(http_request_line(HTTPRequest(
+            method=r.method, path=r.path + "/" + "x" * pad, host=r.host)))
+    data = torch.as_tensor(dfa_ops.encode_strings(lines, DFA_LEN), device=dev)
+    states = dfa_ops.start_states(torch.as_tensor(compiled.starts,
+                                                  device=dev), rows)
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    got = dfa_scan_sharded(table, states, data, mesh, DP_AXIS)
+    want = dfa_ops.dfa_scan(table, states, data)
+    accept = torch.as_tensor(compiled.accept, device=dev)
+    ok = accept[got.long()]
+    sharded_ms = cuda_ms(lambda: dfa_scan_sharded(table, states, data, mesh,
+                                                  DP_AXIS), DFA_TIMED)
+    serial_ms = cuda_ms(lambda: dfa_ops.dfa_scan(table, states, data),
+                        DFA_TIMED)
+    return {"rows": rows, "payload_bytes": DFA_LEN, "chunks": SHARDS,
+            "states": s, "chunk_function_bytes":
+            rows * chunk * s * table.element_size(),
+            "mismatches": int((got != want).sum()),
+            "matched_share": float(ok.any(dim=1).float().mean()),
+            "sharded_ms": float(np.median(sharded_ms)),
+            "serial_ms": float(np.median(serial_ms)), "samples": DFA_TIMED}
+
+
+def sharded_agent(dev) -> dict:
+    """``Daemon(DaemonConfig(dataplane_shards=4))`` on the card over its
+    REST API: geometry, rows on the owning shard, ``/flows?shard=k``,
+    and a shard fault named in the status until gated recovery."""
+    state = policy_state(*POLICY_PROPAGATION)
+    remotes = policy_remotes(state)
+    packed, _ = policy_packets(state, remotes, SHARDED_AGENT_BATCH)
+    d = Daemon(config=DaemonConfig(state_dir="", dataplane_shards=SHARDS,
+                                   supervisor_reset_s=0.2,
+                                   hubble_drain_interval_s=0),
+               device=dev)
+    srv = None
+    try:
+        srv = APIServer(d).start()
+        url = srv.base_url
+        for ep_id, ip, labels in state.endpoints:
+            rest(url, "PUT", f"/endpoint/{ep_id}",
+                 {"ipv4": ip, "labels": list(labels)})
+        for ip, labels in state.peers:
+            ident, _ = d.identity_allocator.allocate(
+                Labels.from_model(list(labels)))
+            d.ipcache.upsert(ip, ident.id, SOURCE_KVSTORE)
+        rest(url, "PUT", "/policy", state.rules_json.encode())
+        if not agent_settled(d, POLICY_WAIT_S):
+            raise AssertionError("sharded-agent: builds did not finish")
+        _, st = rest(url, "GET", "/healthz")
+        geometry = st["dataplane"]["geometry"]
+        # each endpoint's rows on its owning shard's slice, nowhere else
+        misplaced = 0
+        slots = []
+        for ep_id, _ip, _l in state.endpoints:
+            owner = d.table_mgr.shard_of_endpoint(ep_id)
+            slot = d.table_mgr.slot_of(ep_id)
+            slots.append(slot)
+            misplaced += int(slot % SHARDS != owner)
+            misplaced += sum(int((mgr.slot_of(ep_id) is not None) !=
+                                 (k == owner))
+                             for k, mgr in enumerate(d.table_mgr.shards))
+        row_writes = [sh.pack_stats()["row-writes"]
+                      for sh in d.datapath.shards]
+        ep_row = PACKED_FIELDS.index("endpoint")
+        packed[ep_row] = np.asarray(slots, np.int32)[packed[ep_row]]
+        v, _i = d.datapath.classify_records(soa_of(packed),
+                                            packed.shape[1])
+        drained = d.hubble.drain()["drained"]
+        per_shard = {}
+        for k in range(SHARDS):
+            _, ans = rest(url, "GET", f"/flows?shard={k}&n=200")
+            per_shard[k] = {"flows": len(ans["flows"]),
+                            "other_shard": sum(f["shard"] != k
+                                               for f in ans["flows"]),
+                            "partial": ans["partial"]}
+        lane = d.datapath.serving()
+        sup = lane.lanes[SHARDED_VICTIM].supervisor
+        inj = DeviceFaultInjector()
+        sup.install_fault_hook(inj)
+        inj.fail_launch(times=1, fatal=True)
+        victim_rows = packed[:, packed[ep_row] % SHARDS == SHARDED_VICTIM]
+        lane.submit_records(soa_of(victim_rows),
+                            victim_rows.shape[1]).result(
+            timeout=SHARDED_WAIT_S)
+        _, st = rest(url, "GET", "/healthz")
+        degraded = {"mode": st["dataplane"]["mode"],
+                    "degraded_shards": st["dataplane"]["degraded-shards"],
+                    "names_shard": f"shard(s) [{SHARDED_VICTIM}]"
+                    in st["dataplane"]["status"]}
+        inj.heal()
+        t0 = time.perf_counter()
+        while sup.mode != "ok" and \
+                time.perf_counter() - t0 < SHARDED_WAIT_S:
+            lane.submit_records(soa_of(victim_rows),
+                                victim_rows.shape[1]).result(
+                timeout=SHARDED_WAIT_S)
+            time.sleep(0.01)
+        recovery_s = time.perf_counter() - t0
+        _, st = rest(url, "GET", "/healthz")
+        return {"endpoints": len(state.endpoints), "geometry": geometry,
+                "misplaced_rows": misplaced, "row_writes": row_writes,
+                "rows": int(packed.shape[1]),
+                "allowed_share": float((v >= 0).mean()),
+                "drained": drained, "flows_by_shard": per_shard,
+                "degraded": degraded, "seconds_to_recovery": recovery_s,
+                "status_after": st["dataplane"]["status"]}
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        d.shutdown()
+
+
+def sharded_timing(plane, single, state4) -> list:
+    """``classify_records`` of the sharded plane against the single
+    engine's lane, records/s at two sizes, and the card's busy share."""
+    out = []
+    for rows, iters in SHARDED_TIMED.items():
+        soa = soa_of(next(v4_serving_packets(state4, rows, n_flows=V4_FLOWS,
+                                             seed=59)))
+        single_lane = single.serving()
+        for name, fn in (
+                ("sharded", lambda: plane.classify_records(soa, rows)),
+                ("single", lambda: single_lane.submit_records(
+                    soa, rows).result(timeout=SHARDED_WAIT_S))):
+            fn()
+            secs = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                secs.append(time.perf_counter() - t0)
+            _, busy, kernels, wall = device_busy_ms(fn)
+            med = float(np.median(secs))
+            out.append({"plane": name, "rows": rows,
+                        "median_ms": med * 1e3,
+                        "p99_ms": float(np.percentile(secs, 99)) * 1e3,
+                        "samples": iters, "records_per_s": rows / med,
+                        "busy_ms": busy, "kernels": kernels,
+                        "busy_share": busy / (wall * 1e3)})
+    return out
+
+
+def phase_sharded(dev, state4) -> int:
+    """The sharded dataplane on the card: four ep-shards on ``dev``
+    against one engine, their CPU twin, a shard kill, the sharded DFA
+    scan and a sharded agent; returns the dense kernel's launches (every
+    shard runs the hash step)."""
+    t_phase = time.perf_counter()
+    planes = []
+    for where in (dev, torch.device("cpu")):
+        p = ShardedDatapath(n_shards=SHARDS, devices=[where] * SHARDS,
+                            ct_slots=SHARDED_CT_SLOTS, ct_probe=V4_CT_PROBE)
+        state4.load(p)
+        enable_flows(p)
+        p.enable_provenance()
+        planes.append(p)
+    plane, cpu_plane = planes
+    cpu_plane.telemetry_enabled = False
+    single = engine.Datapath(ct_slots=SHARDED_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                             device=dev)
+    state4.load(single)
+    enable_flows(single)
+    single.enable_provenance()
+    # the serving phase's knobs without its admission bound: a 2**20-row
+    # submission is one record chunk here
+    knobs = {k: v for k, v in SERVING_KNOBS.items() if k != "max_pending"}
+    for p in (plane, single):
+        p.configure_supervision(**knobs)
+    setup_s = time.perf_counter() - t_phase
+    dv.dense_verdict.launches = 0
+    try:
+        # ---- sharded-twin: the card against the CPU, one clock ----
+        twin_rows = next(v4_serving_packets(state4, SHARDED_TWIN,
+                                            n_flows=V4_FLOWS, seed=53))
+        twin = sharded_twin(plane, cpu_plane, twin_rows, V4_T0)
+        emit("sharded-twin", rows=SHARDED_TWIN, shards=SHARDS,
+             mismatches=twin, ct_entries=plane.ct_entries(),
+             setup_s=setup_s, name_power_limit=nvidia_smi("name,power.limit"))
+        del cpu_plane, planes
+        # start the parity leg from empty CT tables and zeroed counters
+        plane.gc(now=(1 << 31) - 1)
+        for sh in plane.shards:
+            sh.counters.packets.zero_()
+            sh.counters.bytes.zero_()
+
+        # ---- sharded-parity: 2**20 rows, sharded against one engine ----
+        packed = balanced_batch(state4, SHARDED_BATCH // SHARDS, SHARDS,
+                                seed=57)
+        parity = sharded_parity(plane, single, packed)
+        emit("sharded-parity", shards=SHARDS, ct_slots=SHARDED_CT_SLOTS,
+             geometry=plane.geometry(), **parity,
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # ---- sharded-kill ----
+        kill = sharded_kill(plane, single, state4)
+        emit("sharded-kill", **kill,
+             name_power_limit=nvidia_smi("name,power.limit"))
+
+        # ---- sharded-timing ----
+        timing = sharded_timing(plane, single, state4)
+        for row in timing:
+            emit("sharded-timing", **row,
+                 name_power_limit=nvidia_smi("name,power.limit"))
+    finally:
+        plane.serving().close()
+        single.serving().close()
+
+    # ---- sharded-dfa ----
+    dfa = sharded_dfa(dev)
+    emit("sharded-dfa", **dfa, name_power_limit=nvidia_smi("name,power.limit"))
+
+    # ---- sharded-agent ----
+    agent = sharded_agent(dev)
+    emit("sharded-agent", **agent,
+         name_power_limit=nvidia_smi("name,power.limit"))
+    launches = dv.dense_verdict.launches
+
+    counts = list(twin.values()) + list(parity["mismatches"].values()) + [
+        kill["degraded"]["degraded_shards"] != [SHARDED_VICTIM],
+        kill["degraded"]["ticket_error"] is not None,
+        sum(kill["sibling_mismatches"].values()),
+        set(kill["sibling_breakers"].values()) != {"closed"},
+        not kill["siblings_launched"], kill["before_fault_mismatches"],
+        kill["established_changed"], kill["established_rows"] == 0,
+        kill["fail_static_records"] == 0, kill["mode_after"] != "ok",
+        kill["plane_mode_after"] != "ok", dfa["mismatches"],
+        dfa["chunk_function_bytes"] >= DFA_CHUNK_BYTES,
+        agent["geometry"]["ep"] != SHARDS, agent["misplaced_rows"],
+        any(s["flows"] == 0 or s["other_shard"]
+            for s in agent["flows_by_shard"].values()),
+        agent["degraded"]["degraded_shards"] != [SHARDED_VICTIM],
+        not agent["degraded"]["names_shard"],
+        agent["status_after"] != "ok"]
+    if any(counts):
+        raise AssertionError(f"sharded: {counts}")
+    emit("sharded", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": launches},
+         cross_shard_rows=parity["cross_shard_rows"],
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4116,6 +4682,7 @@ def main() -> int:
         for run in kept:
             run.shutdown()
     kvstore_launches = phase_kvstore(dev)
+    sharded_launches = phase_sharded(dev, state4)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -4153,6 +4720,7 @@ def main() -> int:
         "policy_path_launches": policy_launches,
         "daemon_path_launches": daemon_launches,
         "kvstore_path_launches": kvstore_launches,
+        "sharded_path_launches": sharded_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -13,7 +13,9 @@ Run the agent itself with ``python -m cilium_tpu_torch.cli agent``
 (add --verdict-port to expose the batch verdict service).
 
 A copy of ``cilium_tpu/cli.py`` over the port's agent.  ``agent`` takes
-``--device`` (default ``cuda``; without a card it raises).  The agent's
+``--device`` (default ``cuda``; without a card it raises) and
+``--dataplane-shards N`` (``DaemonConfig.dataplane_shards``: N shard
+engines, all on ``--device``).  The agent's
 ``--k8s-api-server`` and ``--docker-socket``, and the ``cni``,
 ``docker-plugin`` and ``bugtool`` commands, raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.  A verdict service that fails to start stops the agent.
@@ -882,6 +884,8 @@ def cmd_agent(args) -> int:
     cfg = DaemonConfig(cluster_name=args.cluster_name,
                        cluster_id=args.cluster_id,
                        state_dir=args.state_dir,
+                       dataplane_shards=getattr(args, "dataplane_shards",
+                                                0),
                        ct_checkpoint_interval_s=getattr(
                            args, "ct_checkpoint_interval", 10.0))
     kv = None
@@ -1245,6 +1249,10 @@ def build_parser() -> argparse.ArgumentParser:
     ag.add_argument("--device", default="cuda",
                     help="torch device the agent's tables and state "
                          "live on (cuda raises without a card)")
+    ag.add_argument("--dataplane-shards", type=int, default=0,
+                    help="shard the verdict dataplane into this many "
+                         "endpoint shards, each its own fault domain, "
+                         "all on --device (0 or 1: one engine)")
     ag.add_argument("--verdict-port", type=int, default=0,
                     help="serve the batch verdict service on this "
                          "port (0 = disabled)")

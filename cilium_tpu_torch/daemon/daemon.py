@@ -4,11 +4,13 @@ Reference: daemon/daemon.go:1090 NewDaemon (bootstrap order), daemon/
 policy.go:171 PolicyAdd / :48 TriggerPolicyUpdates, daemon/endpoint.go
 (REST endpoint lifecycle), daemon/state.go (restore), daemon/status.go.
 
-Port of ``cilium_tpu/daemon/daemon.py`` with one engine
-(``dataplane_shards`` below 2).  The daemon owns
-one torch ``Datapath`` (device tables and CT state on ``device``), one
-``DeviceTableManager``-backed regeneration pipeline and the ``ProxyManager``
-on the same device, with the reference's controllers (``ct-gc``,
+Port of ``cilium_tpu/daemon/daemon.py``.  The daemon owns one torch
+``Datapath`` (device tables and CT state on ``device``), or with
+``dataplane_shards`` of 2 or more a ``ShardedDatapath`` of that many
+shard engines (every shard on ``device``: the reference spans every
+device of its backend) with a ``ShardedTableManager`` and the federated
+``ShardedObserver``; one ``DeviceTableManager``-backed regeneration
+pipeline and the ``ProxyManager`` on the same device, with the reference's controllers (``ct-gc``,
 ``policy-drift-audit``, ``ct-checkpoint``, ``analytics-drain``), the
 serving supervision whose recovery gate is the full drift audit, and the
 reference's state directory (endpoint JSON checkpoints, ``ct_state.npz``),
@@ -17,9 +19,8 @@ With a kvstore backend it replicates control state (identities,
 ipcache, nodes) through the kvstore as the reference does, behind the
 same outage guard, so port and JAX agents share one store.
 
-The branches into modules a later slice brings raise
-``NotImplementedError`` naming the ROADMAP item: a sharded dataplane
-and the xDS server.
+The branch into a module a later slice brings raises
+``NotImplementedError`` naming the ROADMAP item: the xDS server.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..device import DeviceLike, resolve_device
 from ..endpoint.endpoint import Endpoint, EndpointState
 from ..endpoint.manager import EndpointManager
 from ..endpoint.tables import DeviceTableManager
+from ..hubble.federation import ShardedObserver
 from ..identity import (Identity, IdentityCache, LocalIdentityAllocator,
                         is_local_scope_identity)
 from ..ipcache.cidr import allocate_cidr_identities, release_cidr_identities
@@ -60,6 +62,7 @@ from ..node import NODES_PATH, Node, NodeManager, NodeRegistry
 from ..observability import (PolicyPropagationTracker, jit_telemetry,
                              pipeline_report, slo_tracker, tracer)
 from ..observability.events import recorder as flight_recorder
+from ..parallel.sharded import ShardedDatapath, ShardedTableManager
 from ..policy.api import Rule
 from ..policy.mapstate import PolicyMapState
 from ..policy.repository import Repository
@@ -82,7 +85,6 @@ from ..compiler.lpm import ipv4_to_u32
 V6_SERVICE_ID_BASE = 1_000_000
 
 # the ROADMAP.md queue 1 items that bring what this slice refuses
-ITEM_SHARDING = "7 (sharding)"
 ITEM_XDS = "8.3 (xds, l7/xds_wire, socket_proxy, proxy_child, supervisor)"
 ITEM_HOST_INTEGRATIONS = "8.4 (k8s, cni, docker_plugin, bugtool, health)"
 
@@ -101,9 +103,6 @@ class Daemon:
                  kvstore_backend=None, node_name: str = "node-local",
                  builders: int = 4, device: DeviceLike = None):
         self.config = config or DaemonConfig()
-        if self.config.dataplane_shards >= 2:
-            raise not_ported("a sharded dataplane (dataplane_shards >= 2)",
-                             ITEM_SHARDING)
         self.device = resolve_device(device)
         self.node_name = node_name
         self.repo = Repository()
@@ -113,8 +112,19 @@ class Daemon:
                                   self.config.proxy_port_max,
                                   device=self.device)
         self.controllers = ControllerManager()
-        self.datapath = Datapath(ct_slots=self.config.ct_slots,
-                                 device=self.device)
+        # the verdict dataplane: single-engine by default; with
+        # dataplane_shards >= 2 the pipeline shards across the (dp, ep)
+        # mesh — endpoint-axis table slices with per-shard CT/flow state
+        # and per-shard fault domains (parallel/sharded.py), every shard
+        # on this agent's device
+        n_shards = self.config.dataplane_shards
+        if n_shards >= 2:
+            self.datapath = ShardedDatapath(
+                n_shards=n_shards, devices=[self.device] * n_shards,
+                ct_slots=self.config.ct_slots)
+        else:
+            self.datapath = Datapath(ct_slots=self.config.ct_slots,
+                                     device=self.device)
         # runtime self-telemetry (observability/): span tracing across
         # the control plane, the policy-propagation latency tracker
         # closed by the engine's revision-served hook, and the
@@ -150,8 +160,14 @@ class Daemon:
             default_deadline=self.config.serving_deadline_s or None)
         # incremental policy realization: one endpoint's regeneration
         # writes one device-table row (syncPolicyMap analog); the
-        # engine rebuilds only when the stack's geometry grows
-        self.table_mgr = DeviceTableManager(device=self.device)
+        # engine rebuilds only when the stack's geometry grows.  In
+        # sharded mode the row write (and any grow) touches ONLY the
+        # owning shard's slice.
+        if n_shards >= 2:
+            self.table_mgr = ShardedTableManager(
+                n_shards, devices=[self.device] * n_shards)
+        else:
+            self.table_mgr = DeviceTableManager(device=self.device)
         self.datapath.use_table_manager(self.table_mgr)
         # host fast path: C++ per-endpoint verdict caches (the eBPF
         # hit-path analog); optional — the device path works without it
@@ -196,15 +212,35 @@ class Daemon:
                 self.datapath.enable_flow_aggregation(
                     slots=self.config.hubble_flow_slots,
                     max_probe=self.config.hubble_flow_probe)
-            self.hubble = FlowObserver(
-                node=node_name,
-                capacity=self.config.hubble_ring_capacity,
-                datapath=self.datapath)
+            if n_shards >= 2:
+                # the federated cross-shard observer (hubble/
+                # federation.py): per-shard flow stores behind one
+                # cursor, per-shard device-table drains, and merged
+                # shard-attributed answers with fail-open flags
+                self.hubble = ShardedObserver(
+                    node=node_name, datapath=self.datapath,
+                    capacity=self.config.hubble_ring_capacity)
+                if self.config.hubble_drain_interval_s > 0:
+                    self.controllers.update_controller(
+                        "hubble-shard-drain", ControllerParams(
+                            do_func=lambda: self.hubble.drain(),
+                            run_interval=self.config
+                            .hubble_drain_interval_s))
+            else:
+                self.hubble = FlowObserver(
+                    node=node_name,
+                    capacity=self.config.hubble_ring_capacity,
+                    datapath=self.datapath)
             self.hubble.attach_monitor(self.monitor)
             self.hubble.attach_access_log(self.proxy.access_log)
 
             def _local_fetch(query, since, limit):
                 flt = FlowFilter.from_query(query)
+                if hasattr(self.hubble, "local_answer"):
+                    # sharded: the answer carries per-shard fail-open
+                    # statuses the relay propagates mesh-wide
+                    return self.hubble.local_answer(
+                        flt, since=since, limit=limit)
                 return {"flows": self.hubble.get_flows(
                     flt, since=since, limit=limit)}
 
@@ -1190,9 +1226,13 @@ class Daemon:
     # ------------------------------------- device traffic analytics
 
     def _analytics_sections(self, swap: bool) -> Optional[Dict]:
-        """One decoded-epoch fetch shaped like the sharded answer (one
-        section, shard 0): the engine swaps and snapshots locally."""
+        """One decoded-epoch fetch shaped like the sharded answer for
+        both dataplane shapes: the sharded datapath merges per-shard
+        sections behind per-shard breakers (fail-open); the single
+        engine swaps + snapshots locally."""
         dp = self.datapath
+        if hasattr(dp, "analytics_sections"):
+            return dp.analytics_sections(swap=swap)
         from ..analytics.decode import epoch_section, quiesced_section
         report = dp.analytics_report()
         if report is None:
@@ -1880,6 +1920,20 @@ class Daemon:
         mode = out.get("mode", "ok")
         if mode == "ok":
             out["status"] = "ok"
+        elif "shards" in out:
+            # sharded dataplane: name EXACTLY the degraded shards —
+            # the rest of the mesh is still serving bit-exact on
+            # device, and the operator must see the blast radius
+            bad = out.get("degraded-shards", [])
+            faults = []
+            for k in bad:
+                sup = ((out["shards"].get(str(k)) or {})
+                       .get("serving") or {}).get("supervisor") or {}
+                faults.append(f"shard {k}: {sup.get('last-fault')}")
+            out["status"] = (
+                f"{mode.upper()}: shard(s) {bad} serving fail-static "
+                f"from the host oracle ({'; '.join(faults)}); "
+                f"remaining shards on device")
         else:
             sup = (out.get("serving") or {}).get("supervisor") or {}
             out["status"] = (

@@ -10,8 +10,7 @@ path in the reference's api/v1/openapi.yaml. Stdlib http.server —
 the reference serves REST over a unix socket; here TCP on localhost
 for the CLI.
 
-A copy of ``cilium_tpu/daemon/rest.py`` over the port's ``Daemon``;
-the sharded answers of /flows come with sharding.
+A copy of ``cilium_tpu/daemon/rest.py`` over the port's ``Daemon``.
 """
 
 from __future__ import annotations
@@ -516,7 +515,15 @@ class _Handler(BaseHTTPRequestHandler):
                         flt, limit=n))
                 if d.hubble is None:
                     return self._error(503, "hubble disabled")
-                if qs.get("shard", [None])[0] is not None:
+                shard_q = qs.get("shard", [None])[0]
+                if hasattr(d.hubble, "local_answer"):
+                    # sharded: merged shard-attributed flows plus the
+                    # per-shard fail-open statuses
+                    return self._send(200, d.hubble.local_answer(
+                        flt, limit=n,
+                        shard=int(shard_q) if shard_q is not None
+                        else None))
+                if shard_q is not None:
                     return self._error(
                         400, "shard= requires a sharded dataplane "
                              "(dataplane_shards >= 2)")

@@ -15,7 +15,11 @@ the shared micro-batching lane (``datapath/serving.py``) under a
 ``DeviceSupervisor`` (``datapath/supervisor.py``); ``policy_replay``
 runs header batches through the live policy tensors, and
 ``map_inventory`` / ``map_dump`` / ``map_pressure`` read the tables for
-the agent's ``/map`` routes and ``status()``.  Swap-on-regenerate:
+the agent's ``/map`` routes and ``status()``.  ``set_mesh_placement``
+makes the engine one shard of the sharded dataplane
+(``parallel/sharded.py``): its state moves to its mesh column's first
+device and its lane, supervisor and reports carry the shard index.
+Swap-on-regenerate:
 ``load_policy`` builds a new table generation while conntrack, counters
 and flows survive when the shapes allow (the analog of pinned BPF maps
 surviving an agent restart).  The steps run eagerly; nothing in them
@@ -37,10 +41,10 @@ from ..compiler.lpm import (CompiledLPM, CompiledLPM6, compile_lpm,
                             compile_lpm6, ipv4_to_u32, ipv6_batch_words,
                             ipv6_to_words)
 from ..compiler.policy_tables import CompiledPolicy, compile_endpoints
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, same_device
 from ..analytics.stage import (CTRL_COL, AnalyticsState, ctrl_row,
                                epoch_rows, make_analytics_state)
-from ..hubble.aggregation import FlowTable
+from ..hubble.aggregation import FlowState, FlowTable
 from ..observability.jitstats import jit_telemetry
 from ..observability.pressure import compute_pressure
 from ..observability.stages import record_stage
@@ -142,6 +146,20 @@ class Datapath:
         self._serving: Optional[VerdictDispatcher] = None
         self._serving_lane_name = "verdict"
         self._supervision_cfg: Dict = {"enabled": True}
+        # mesh placement (parallel/): the (dp, 1) column this engine
+        # serves as one shard of the sharded dataplane; None: a single
+        # engine.  The step runs on the column's first device.
+        self._placement = None
+        self.shard_index: Optional[int] = None
+        # the LB tables on this engine's device, when the service
+        # registry is shared with an engine on another device:
+        # (the registry's compiled generation, its tables here)
+        self._lb_here = None
+        # table-write accounting under the reference's keys: whole table
+        # loads, policy rows written in place, single tensors written in
+        # place (the reference's packed-buffer region writes)
+        self._pack_stats = {"full-packs": 0, "row-writes": 0,
+                            "leaf-writes": 0}
         # per-second device timestamp: steady-state batches reuse one
         # 0-d tensor instead of making a new one per batch
         self._ts_cache: Optional[Tuple[int, torch.Tensor]] = None
@@ -324,6 +342,7 @@ class Datapath:
             if self._tables is not None:
                 self._write_in_place(self._tables.tm_cfg,
                                      self._threat.config.encode())
+                self._pack_stats["leaf-writes"] += 1
 
     def apply_threat_weights(self, model) -> bool:
         """Hot-swap the scorer (a trained ``ThreatModel``): the same
@@ -340,6 +359,7 @@ class Datapath:
                 return False
             for name, arr in model.tables().items():
                 self._write_in_place(getattr(self._tables, name), arr)
+                self._pack_stats["leaf-writes"] += 1
             return True
 
     def restore_threat_state(self, state: ThreatState) -> None:
@@ -366,6 +386,7 @@ class Datapath:
         out.update({"buckets": state.state.shape[0] - 1,
                     "window-s": self._threat_window_s,
                     "stripe": self._threat_stripe,
+                    "shard": self.shard_index,
                     "active-buckets": int(
                         (state.state[:-1, COL_WIN_TS] != 0).sum())})
         return out
@@ -446,6 +467,7 @@ class Datapath:
                     "depth": self._analytics_depth,
                     "lanes": self._analytics_lanes,
                     "stripe": self._analytics_stripe,
+                    "shard": self.shard_index,
                     "write-epoch": self._analytics_epoch}
 
     # -- table generations ----------------------------------------------
@@ -500,6 +522,7 @@ class Datapath:
                 self._rebuild(mgr_snapshot=(geometry, tensors))
                 return True
             dirty = self._table_mgr.drain_dirty()
+            self._pack_stats["row-writes"] += len(dirty)
             if dirty:
                 # rows are written in place: rule_decoder's copy is stale
                 self._prov_decode_cache = None
@@ -583,6 +606,7 @@ class Datapath:
             if self._tables6 is not None:
                 self._tables6 = self._tables6._replace(
                     router_ip6=self._put(self._router_ip6))
+                self._pack_stats["leaf-writes"] += 1
 
     def icmp6_echo_reply_bytes(self, requester_ip6: str, ident: int = 0,
                                seq: int = 0) -> bytes:
@@ -625,6 +649,7 @@ class Datapath:
                 ep = self._put(self._ep_identity)
                 self._tables = self._tables._replace(ep_identity=ep)
                 self._tables6 = self._tables6._replace(ep_identity=ep)
+                self._pack_stats["leaf-writes"] += 1
 
     def reload_services(self) -> None:
         with self._lock:
@@ -644,6 +669,7 @@ class Datapath:
         if self._table_mgr is None and self.compiled_policy is None:
             return
         self.rebuilds += 1
+        self._pack_stats["full-packs"] += 1
         if self.lb.compiled is None:
             self.lb._recompile()
         if self.compiled_ipcache is None:
@@ -692,7 +718,7 @@ class Datapath:
         # while a stage is off
         stage_kwargs, stage_statics = self._stage_tables(dp)
         self._tables = FullTables(
-            datapath=dp, lb=self.lb.compiled.tables,
+            datapath=dp, lb=self._lb_tables(),
             pf_masks=self._put(pf.masks), pf_key_a=self._put(pf.key_a),
             pf_key_b=self._put(pf.key_b), pf_value=self._put(pf.value),
             pf_plens=self._put(pf.prefix_lens),
@@ -737,6 +763,20 @@ class Datapath:
             ct_slots=self.ct6.slots, ct_probe=self.ct6.max_probe,
             lb6_probe=lb6.max_probe if lb6 is not None else 0,
             **flow_kwargs, **stage_statics)
+
+    def _lb_tables(self):
+        """The service registry's compiled LB tables on this engine's
+        device (lock held).  A sharded plane shares one registry across
+        its shards (``parallel/sharded.py``); the registry compiles on
+        its own device, so a shard on another device takes a copy,
+        made once per compiled generation."""
+        compiled = self.lb.compiled
+        if same_device(compiled.tables.svc_key_a.device, self.device):
+            return compiled.tables
+        if self._lb_here is None or self._lb_here[0] is not compiled:
+            self._lb_here = (compiled, type(compiled.tables)(
+                *(t.to(self.device) for t in compiled.tables)))
+        return self._lb_here[1]
 
     def _stage_tables(self, dp: DatapathTables):
         """(table tensors, step flags) of the enabled optional stages
@@ -898,13 +938,56 @@ class Datapath:
 
     # -- the serving lane (datapath/serving.py, datapath/supervisor.py) ---
 
+    def set_mesh_placement(self, submesh, shard: Optional[int] = None,
+                           lane: Optional[str] = None) -> None:
+        """Make this engine one shard column of the dataplane mesh
+        (``parallel/mesh.ep_submesh``): its tables, CT, counters, flow,
+        threat and analytics state move to the column's first device,
+        where its step runs whole, and its serving lane is named
+        ``verdict-s{shard}`` unless ``lane`` names it.  The column's
+        other dp devices hold nothing: splitting a batch across them
+        would need a cross-device merge of the CT creates."""
+        dev = submesh.devices[0, 0]
+        with self._lock:
+            self._placement = submesh
+            self.shard_index = shard
+            if lane is not None:
+                self._serving_lane_name = lane
+            elif shard is not None:
+                self._serving_lane_name = f"verdict-s{shard}"
+            if same_device(dev, self.device):
+                return
+            self.device = dev
+            self._ts_cache = None
+            self._absent_payloads = {}
+            for tbl in (self.ct, self.ct6):
+                tbl.device = dev
+                tbl.state = tbl.state.to(dev)
+            if self.flows is not None:
+                self.flows.device = dev
+                self.flows.state = FlowState(
+                    *(t.to(dev) for t in self.flows.state))
+            if self._counters is not None:
+                self._counters = self._counters.to(dev)
+            if self.threat_state is not None:
+                self.threat_state = ThreatState(
+                    state=self.threat_state.state.to(dev))
+            if self.analytics_state is not None:
+                self.analytics_state = AnalyticsState(
+                    state=self.analytics_state.state.to(dev))
+            if self.compiled_lb6 is not None:
+                self.compiled_lb6 = compile_lb6(
+                    list(self.lb6_services.values()), device=dev)
+            self._rebuild()
+
     def configure_supervision(self, enabled: bool = True,
                               **knobs) -> None:
         """Set the serving lane's supervision config before the first
         ``serving()``.  Knobs: watchdog_s, failure_threshold, reset_s,
-        new_flow_policy, recovery_gate (``DeviceSupervisor`` arguments)
-        plus max_pending and default_deadline (admission control).  ``enabled=False`` gives
-        the lane without a supervisor."""
+        new_flow_policy, recovery_gate, shard (``DeviceSupervisor``
+        arguments) plus max_pending and default_deadline (admission
+        control).  ``enabled=False`` gives the lane without a
+        supervisor."""
         with self._lock:
             if self._serving is not None:
                 raise RuntimeError(
@@ -1250,6 +1333,41 @@ class Datapath:
                  "proto": s.proto, "backends": len(s.backends),
                  "rev-nat": s.rev_nat_index} for s in svcs6]
 
+    # -- table-write accounting -----------------------------------------
+
+    def pack_stats(self) -> Dict:
+        """Table-write accounting under the reference's keys:
+        ``full-packs`` counts whole table loads (generations built),
+        ``row-writes`` the policy rows ``refresh_policy`` wrote in place,
+        ``leaf-writes`` the single tensors written in place (threat
+        config and weights, router address, endpoint identities)."""
+        with self._lock:
+            return dict(self._pack_stats)
+
+    def dispatch_leaf_counts(self) -> Dict[str, int]:
+        """The tensors each step is handed per batch, under the
+        reference's keys: ``packed-step`` (``process_packed``: the table
+        tensors, the CT table, the counter buffer, the [10, B] matrix,
+        the timestamp and the enabled stages' state), ``v6-step``
+        (``process6``, ten per-field packet tensors) and
+        ``legacy-step`` (``process`` with the CT and counters split per
+        field, as the reference counts its pytree form)."""
+        with self._lock:
+            if self._tables is None:
+                raise RuntimeError("no policy loaded")
+            extra = (2 if self.flows is not None else 0) + \
+                (1 if self._l7_fast is not None else 0) + \
+                (1 if self._threat is not None else 0) + \
+                (1 if self.analytics_state is not None else 0)
+            n_tables = _tensor_leaves(self._tables)
+            n_tables6 = _tensor_leaves(self._tables6)
+        n_packed = n_tables + 1 + 1 + 1 + 1 + extra
+        n_legacy = n_tables + len(CT_FIELDS) + 2 + 1 + 1 + extra
+        return {"packed-step": n_packed,
+                "v6-step": n_tables6 + 1 + 1 + 10 + 1 + extra,
+                "legacy-step": n_legacy,
+                "reduction": round(n_legacy / n_packed, 2)}
+
     # -- conntrack surface ------------------------------------------------
 
     def ct_entries(self) -> Tuple[int, int]:
@@ -1277,6 +1395,16 @@ class Datapath:
         with self._lock:
             ts = now if now is not None else int(time.time())
             return self.ct.gc(ts) + self.ct6.gc(ts)
+
+
+def _tensor_leaves(tree) -> int:
+    """Tensors in a (nested) NamedTuple of tables; None fields are
+    absent tables and not counted."""
+    if isinstance(tree, torch.Tensor):
+        return 1
+    if isinstance(tree, tuple):
+        return sum(_tensor_leaves(t) for t in tree)
+    return 0
 
 
 def make_full_batch(endpoint, saddr, daddr, sport, dport, proto=None,

@@ -200,6 +200,9 @@ class ContinuousDispatcher:
         # ---- device-fault supervision (datapath/supervisor.py):
         # classify faults, fail static from the host oracle, recover
         self.supervisor = supervisor
+        # the shard a shard-scoped supervisor guards (parallel/
+        # sharded.py), carried into the lane's events and SLO samples
+        self._shard = getattr(supervisor, "shard", None)
         # observability: how well the batching is working
         self.batches = 0
         self.frames = 0
@@ -229,7 +232,7 @@ class ContinuousDispatcher:
                                      labels={"lane": self.lane})
             # watermark crossings are incident-timeline transitions
             flight_recorder.record(
-                EVENT_SERVING_OVERLOAD,
+                EVENT_SERVING_OVERLOAD, shard=self._shard,
                 lane=self.lane, state="on" if value else "off",
                 pending=self._pending_weight)
 
@@ -354,7 +357,8 @@ class ContinuousDispatcher:
         # are fine — observability, not control flow)
         slo_tracker.sample_queue(self.lane, queued=len(self._pending),
                                  inflight=len(self._inflight),
-                                 pending_weight=self._pending_weight)
+                                 pending_weight=self._pending_weight,
+                                 shard=self._shard)
         self._inflight.append(
             (handle, batch, [self._weight(item) for item, _t in batch]))
         self.batches += 1
@@ -399,6 +403,7 @@ class ContinuousDispatcher:
         for _item, ticket in batch:
             slo_tracker.observe(self.lane,
                                 now - ticket.submitted_at,
+                                shard=self._shard,
                                 objective_s=self.default_deadline)
 
     def _fail(self, batch, error: BaseException) -> None:

@@ -48,7 +48,9 @@ from ..observability.events import (EVENT_DATAPLANE_DEGRADED,
 from ..utils.faultinject import DeviceLaneFault
 from ..utils.metrics import (DATAPLANE_DEVICE_FAULTS,
                              DATAPLANE_FAIL_STATIC, DATAPLANE_MODE,
-                             DATAPLANE_RECOVERIES)
+                             DATAPLANE_RECOVERIES,
+                             DATAPLANE_SHARD_FAULTS,
+                             DATAPLANE_SHARD_MODE)
 from ..utils.resilience import (STATE_CLOSED, STATE_HALF_OPEN,
                                 CircuitBreaker)
 from .codes import VERDICT_DROP, WORLD_IDENTITY
@@ -326,10 +328,17 @@ class DeviceSupervisor:
     def __init__(self, datapath, *, watchdog_s: float = 10.0,
                  failure_threshold: int = 3, reset_s: float = 0.5,
                  new_flow_policy: str = "oracle",
-                 recovery_gate: Optional[Callable[[], bool]] = None):
+                 recovery_gate: Optional[Callable[[], bool]] = None,
+                 shard: Optional[int] = None):
         self.datapath = datapath
         self.watchdog_s = watchdog_s
-        self._name = "dataplane"
+        # shard scoping (parallel/sharded.py): this supervisor guards
+        # ONE ep-shard's engine — its breaker, watchdog, fault
+        # accounting and fail-static fallback cover only endpoints
+        # mapped to that shard; sibling shards keep serving on device
+        self.shard = shard
+        self._name = "dataplane" if shard is None else \
+            f"dataplane-shard{shard}"
         self.oracle = HostStaticOracle(datapath,
                                        new_flow_policy=new_flow_policy)
         self.breaker = CircuitBreaker(
@@ -341,7 +350,7 @@ class DeviceSupervisor:
         self._probing = False
         self._refreshing = threading.Lock()
         self._mode = MODE_OK
-        DATAPLANE_MODE.set(0.0)
+        self._set_mode_gauge(0.0)
         # observability
         self.fail_static_batches = 0
         self.fail_static_records = 0
@@ -357,7 +366,11 @@ class DeviceSupervisor:
 
     def install_fault_hook(self, hook) -> None:
         """Arm a DeviceFaultInjector (utils/faultinject) — the chaos
-        hand's device-lane entry point."""
+        hand's device-lane entry point.  The injector inherits this
+        supervisor's shard scope: its faults land on exactly this
+        shard's launches/finalizes."""
+        if hasattr(hook, "shard"):
+            hook.shard = self.shard
         self._hook = hook
 
     # ------------------------------------------------------------ mode
@@ -371,21 +384,31 @@ class DeviceSupervisor:
             return MODE_RECOVERING
         return MODE_DEGRADED
 
+    def _set_mode_gauge(self, code: float) -> None:
+        if self.shard is None:
+            DATAPLANE_MODE.set(code)
+        else:
+            # shard-scoped lanes report per shard; the aggregate
+            # dataplane_mode is maintained by the sharded plane
+            DATAPLANE_SHARD_MODE.set(code,
+                                     labels={"shard": str(self.shard)})
+
     def _sync_mode(self) -> None:
         mode = self.mode
         if mode != self._mode:
             prev, self._mode = self._mode, mode
-            DATAPLANE_MODE.set(float(_MODE_CODE[mode]))
+            self._set_mode_gauge(float(_MODE_CODE[mode]))
             # flight recorder: mode flips ARE the incident timeline's
             # spine (trip -> degraded -> fail-static -> rebuild ->
             # recovered)
             if mode == MODE_DEGRADED:
                 flight_recorder.record(
                     EVENT_DATAPLANE_DEGRADED,
-                    detail=self.last_fault or "", breaker=self.breaker.state)
+                    detail=self.last_fault or "", shard=self.shard,
+                    breaker=self.breaker.state)
             elif mode == MODE_OK and prev != MODE_OK:
                 flight_recorder.record(
-                    EVENT_DATAPLANE_RECOVERED,
+                    EVENT_DATAPLANE_RECOVERED, shard=self.shard,
                     recoveries=self.recoveries,
                     fail_static_records=self.fail_static_records)
                 self._static_reported = False
@@ -459,10 +482,14 @@ class DeviceSupervisor:
         self.faults[kind] = self.faults.get(kind, 0) + 1
         self.last_fault = f"{stage}: {e!r}"
         flight_recorder.record(EVENT_DATAPLANE_TRIP,
-                               detail=self.last_fault, stage=stage,
+                               detail=self.last_fault,
+                               shard=self.shard, stage=stage,
                                kind=kind)
         DATAPLANE_DEVICE_FAULTS.inc(labels={"stage": stage,
                                             "kind": kind})
+        if self.shard is not None:
+            DATAPLANE_SHARD_FAULTS.inc(
+                labels={"shard": str(self.shard), "kind": kind})
         if kind == "transient":
             self.breaker.record_failure()
         else:
@@ -533,7 +560,7 @@ class DeviceSupervisor:
             # first fail-static batch of this degradation window
             self._static_reported = True
             flight_recorder.record(EVENT_DATAPLANE_FAIL_STATIC,
-                                   records=total,
+                                   shard=self.shard, records=total,
                                    new_flow_policy=self.oracle
                                    .new_flow_policy)
         return results, None
@@ -556,6 +583,7 @@ class DeviceSupervisor:
             self.last_fault = f"recovery-rebuild: {e!r}"
             flight_recorder.record(EVENT_DATAPLANE_REBUILD,
                                    detail=self.last_fault,
+                                   shard=self.shard,
                                    result="rebuild-failed")
             return False
         gate = self._recovery_gate or self._default_gate
@@ -565,10 +593,11 @@ class DeviceSupervisor:
             self.last_fault = f"recovery-gate: {e!r}"
             flight_recorder.record(EVENT_DATAPLANE_REBUILD,
                                    detail=self.last_fault,
+                                   shard=self.shard,
                                    result="gate-raised")
             return False        # a gate that failed
         flight_recorder.record(
-            EVENT_DATAPLANE_REBUILD,
+            EVENT_DATAPLANE_REBUILD, shard=self.shard,
             result="ok" if ok else "gate-failed",
             detail="" if ok else (self.last_fault or ""))
         return ok
@@ -607,6 +636,7 @@ class DeviceSupervisor:
 
     def stats(self) -> Dict:
         return {"mode": self.mode,
+                "shard": self.shard,
                 "breaker": self.breaker.state,
                 "probe-in": round(self.breaker.retry_in(), 3),
                 "faults": dict(self.faults),

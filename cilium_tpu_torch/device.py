@@ -30,6 +30,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one, ``cuda`` and ``cuda:0`` alike (a
+    tensor made on ``cuda`` reports ``cuda:0``)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device() if a.index is None or \
+        b.index is None else 0
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
+
+
 def host_buffer(shape, pinned: bool) -> Tuple[torch.Tensor, np.ndarray]:
     """An int32 host tensor, page-locked when ``pinned`` (so copies
     between it and a card can be queued without the host waiting), and

@@ -9,8 +9,10 @@
     observer    — one node's queryable flow view and flow metrics
     relay       — federated get_flows fan-out with per-peer deadlines and
                   circuit breakers
-
-The cross-shard ``federation`` tier comes with sharding.
+    federation  — the cross-shard tier on sharded daemons: per-shard
+                  flow stores behind one shared cursor, per-shard
+                  device-table drains, and shard-attributed merged
+                  answers with fail-open degradation flags
 """
 
 from .aggregation import (FlowState, FlowTable, aggregate_oracle,
@@ -19,6 +21,7 @@ from .aggregation import (FlowState, FlowTable, aggregate_oracle,
 from .filter import FlowFilter, parse_drop_reason, parse_proto, parse_verdict
 from .flow import (FlowRecord, FlowStore, flow_from_access_log,
                    flow_from_dict, flow_from_event, verdict_of_event)
+from .federation import ShardedObserver
 from .observer import FlowObserver
 from .relay import HubbleRelay, rest_peer
 
@@ -28,5 +31,5 @@ __all__ = [
     "FlowFilter", "parse_drop_reason", "parse_proto", "parse_verdict",
     "FlowRecord", "FlowStore", "flow_from_access_log", "flow_from_dict",
     "flow_from_event", "verdict_of_event",
-    "FlowObserver", "HubbleRelay", "rest_peer",
+    "FlowObserver", "HubbleRelay", "rest_peer", "ShardedObserver",
 ]

@@ -216,6 +216,16 @@ def flow_update_step(st: FlowState, src_id, dst_id, dport, proto,
 # Host wrapper + numpy oracle
 # ---------------------------------------------------------------------------
 
+def place_sharded(state: FlowState, mesh) -> FlowState:
+    """Place the flow table where the mesh's step runs it
+    (``parallel/mesh.py``): the mesh's first device, the column head
+    whose step takes every batch whole (the reference replicates it
+    across the mesh and reduces batch-sharded scatter-adds into it; one
+    whole step gives the same table)."""
+    dev = mesh.devices[0, 0]
+    return FlowState(*(t.to(dev) for t in state))
+
+
 class FlowTable:
     """Host owner of the device flow state (the Hubble flowmap analog)."""
 

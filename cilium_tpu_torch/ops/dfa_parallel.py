@@ -1,6 +1,6 @@
 """Sequence-parallel DFA evaluation: composition over bytes.
 
-Port of the single-device half of ``cilium_tpu/ops/dfa_parallel.py``.
+Port of ``cilium_tpu/ops/dfa_parallel.py``.
 A DFA step on byte ``c`` is a function f_c: state -> state, the vector
 ``table[:, c]`` of shape [S]; matching a payload is the composition
 f_{c_L} o ... o f_{c_1}.  Composition is associative and the states are
@@ -12,8 +12,14 @@ exact integers, so any grouping gives the same bits:
 - ``dfa_scan_compose`` composes groups of k functions in k-1 parallel
   rounds, then walks the L/k group functions.
 
+- ``dfa_scan_sharded`` splits the payload axis over a mesh axis's
+  devices: each composes its chunk, then log2(N) hops of ``.to()``
+  copies (the reference's ``lax.ppermute``) build the prefix of chunk
+  compositions, and the last device's total is applied to the states.
+
 Padding bytes (negative) compose as the identity function, so ragged
-rows need no special casing.  Both materialise [B, L, S] functions.
+rows need no special casing.  All three materialise [B, L, S]
+functions (the sharded scan [B, L/N, S] on each device).
 """
 
 from __future__ import annotations
@@ -108,3 +114,42 @@ def dfa_match_compose(table: torch.Tensor, accept: torch.Tensor,
                              k)
     ok = accept[final.to(torch.int64)]
     return ok & ~overlong_rows(data)[:, None]
+
+
+def dfa_scan_sharded(table: torch.Tensor, states: torch.Tensor,
+                     data: torch.Tensor, mesh, seq_axis: str) -> torch.Tensor:
+    """Final DFA states with the payload axis split over the devices of
+    ``seq_axis`` of ``mesh`` (``parallel/mesh.Mesh``; the axis's devices
+    are the mesh's first row or column along it, and may repeat).
+
+    Device i composes its [L/N] chunk into one transition vector
+    (``_compose_all``); a Hillis-Steele inclusive prefix over the chunks
+    then takes log2(N) hops, each a ``.to()`` copy of the partial
+    compositions to the devices ``hop`` to their right (the reference's
+    ``lax.ppermute``), after which device i holds f_i o ... o f_0.  The
+    last device's total is applied to ``states``.
+
+    table: [S, 256]; states: [B, R]; data: [B, L] with L divisible by
+    the axis size.  Returns the final states [B, R] in the table's dtype
+    on ``states``'s device."""
+    axis = mesh.axis_names.index(seq_axis)
+    devs = list(mesh.devices[:, 0] if axis == 0 else mesh.devices[0, :])
+    n = len(devs)
+    b, l = data.shape
+    if l % n:
+        raise ValueError(f"payload length {l} not divisible by the "
+                         f"{seq_axis} axis size {n}")
+    step = l // n
+    acc = [_compose_all(transition_functions(
+        table.to(dev), data[:, i * step:(i + 1) * step].to(dev)))
+        for i, dev in enumerate(devs)]                   # [B, S] each
+    hop = 1
+    while hop < n:
+        # devices with nothing ``hop`` to their left keep their value
+        # (the reference composes them with the identity)
+        acc = [a if i < hop else compose(a, acc[i - hop].to(devs[i]))
+               for i, a in enumerate(acc)]               # earlier first
+        hop <<= 1
+    total = acc[-1]
+    return torch.gather(total, -1, states.to(total.device, torch.int64)
+                        ).to(states.device)

@@ -1,7 +1,6 @@
 """Device-lane and transport fault injection.
 
-Copy of ``cilium_tpu/utils/faultinject.py`` without the shard scope of
-``DeviceFaultInjector`` (the sharded dataplane is not ported):
+Copy of ``cilium_tpu/utils/faultinject.py``:
 
 - ``DeviceLaneFault`` / ``DeviceFaultInjector``: the chaos hand of the
   serving supervisor (``datapath/supervisor.py``), consulted around
@@ -64,13 +63,17 @@ class DeviceFaultInjector:
     - ``heal()`` — disarm everything.
     """
 
-    def __init__(self):
+    def __init__(self, shard: Optional[int] = None):
         self._mu = threading.Lock()
         self._launch: deque = deque()    # ("raise", fatal)
         self._finalize: deque = deque()  # ("raise", fatal)|("hang", s)
         self.launches = 0
         self.finalizes = 0
         self.injected = 0
+        # shard scope: set by DeviceSupervisor.install_fault_hook when
+        # installed on a shard-scoped lane — the injector's faults land
+        # on exactly that shard's launches, nobody else's
+        self.shard = shard
 
     # ------------------------------------------------------- arming
 

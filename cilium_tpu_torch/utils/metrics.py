@@ -4,9 +4,9 @@ Copy of ``cilium_tpu/utils/metrics.py``'s registry (counters, gauges,
 histograms, text exposition) with only the series the port writes: the
 endpoint build queue's, the daemon's policy and identity gauges, the
 verdict outcomes and their provenance, the drift audit, the dataplane
-supervision series, the controllers', Hubble's, the kvstore's and the
-optional stages' (threat, analytics, L7 fast).  The sharded-dataplane
-and federation series wait for their modules.  The serving, SLO, stage
+supervision series with their per-shard twins, the controllers',
+Hubble's and its federation's, the kvstore's and the optional stages'
+(threat, analytics, L7 fast).  The serving, SLO, stage
 and flight-recorder series are registered by their own modules.
 """
 
@@ -293,6 +293,18 @@ DATAPLANE_FAIL_STATIC = registry.counter(
     "dataplane_fail_static_verdicts_total",
     "Verdicts served from the host fail-static oracle while the "
     "device lane is degraded")
+# Per-shard fault-domain series (parallel/sharded.py): when the verdict
+# dataplane is sharded across the device mesh, each ep-shard is its own
+# fault domain with its own breaker — these series carry the shard
+# index so a single-shard failure is visible as exactly that.
+DATAPLANE_SHARD_MODE = registry.gauge(
+    "dataplane_shard_mode",
+    "Per-shard dataplane serving mode (0 ok / 1 degraded / "
+    "2 recovering), by shard index")
+DATAPLANE_SHARD_FAULTS = registry.counter(
+    "dataplane_shard_faults_total",
+    "Device-lane faults absorbed by a shard-scoped supervisor, by "
+    "shard index and kind")
 PROXY_REDIRECTS = registry.gauge(
     "proxy_redirects", "Number of active proxy redirects")
 # On-device L7 fast verdicts (datapath/pipeline.py fast-verdict stage
@@ -378,6 +390,23 @@ HUBBLE_RELAY_FAILURES = registry.counter(
 HUBBLE_RELAY_SECONDS = registry.histogram(
     "hubble_relay_peer_seconds",
     "Relay per-peer get_flows fan-out latency")
+
+# Federated cross-shard Hubble series (hubble/federation.py): the
+# sharded daemon's merged flow plane — per-shard device-table drains
+# and the partial/ok accounting of merged shard-attributed answers.
+HUBBLE_FEDERATION_QUERIES = registry.counter(
+    "hubble_federation_queries_total",
+    "Merged cross-shard flow queries served by the federated "
+    "observer, by result (ok = every shard healthy, partial = at "
+    "least one shard degraded or unreadable)")
+HUBBLE_FEDERATION_DRAINED = registry.counter(
+    "hubble_federation_drained_flows_total",
+    "Flow records drained from per-shard device flow tables into the "
+    "federated stores, by shard")
+HUBBLE_FEDERATION_SHARDS = registry.gauge(
+    "hubble_federation_shards",
+    "Federated observer shard planes by state (available = store "
+    "serving and drain breaker closed)")
 
 # Device-resident traffic-analytics series (analytics/ + the fused
 # sketch stage in datapath/pipeline.py): heavy-hitter byte shares

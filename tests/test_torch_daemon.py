@@ -36,6 +36,7 @@ from cilium_tpu.utils.option import DaemonConfig as RefDaemonConfig
 
 from cilium_tpu_torch import migrate
 from cilium_tpu_torch.daemon import Daemon
+from cilium_tpu_torch.datapath.pipeline import PACKED_FIELDS
 from cilium_tpu_torch.endpoint.endpoint import Endpoint
 from cilium_tpu_torch.ipcache.ipcache import SOURCE_KVSTORE
 from cilium_tpu_torch.labels import LabelArray, Labels
@@ -589,14 +590,41 @@ def test_old_state_dir_restores_in_both(tmp_path):
 # -------------------------------------------------------------- refusals
 
 def test_later_slices_are_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Daemon(config=DaemonConfig(dataplane_shards=2), device="cpu")
     d = start_agent(PORT, str(tmp_path / "s"))
     try:
         with pytest.raises(NotImplementedError, match="item 8.3"):
             d.serve_xds()
     finally:
         d.shutdown()
+
+
+def test_a_sharded_agent_starts_and_serves(tmp_path):
+    """``dataplane_shards=2`` builds the sharded dataplane (no refusal):
+    the agent settles the small state and serves every row through its
+    shard lanes with the verdicts of a one-engine agent."""
+    st = small_state()
+    packed, _ = policy_packets(st, policy_remotes(st), 512, seed=4)
+    soa = {f: np.ascontiguousarray(packed[i])
+           for i, f in enumerate(PACKED_FIELDS)}
+    sharded = single = None
+    try:
+        sharded = start_agent(PORT, str(tmp_path / "s"), dataplane_shards=2)
+        single = start_agent(PORT, str(tmp_path / "o"))
+        for d in (sharded, single):
+            populate(PORT, d, st)
+            assert settle(d)
+        assert sharded.status()["dataplane"]["geometry"]["shards"] == 2
+        assert sharded.status()["dataplane"]["status"] == "ok"
+        rename = redirect_renames(single, sharded)
+        v_s, i_s = sharded.datapath.classify_records(
+            {k: v.copy() for k, v in soa.items()}, packed.shape[1])
+        v_o, i_o = single.datapath.serving().submit_records(
+            {k: v.copy() for k, v in soa.items()},
+            packed.shape[1]).result(timeout=WAIT_S)
+        np.testing.assert_array_equal(v_s, rename_verdicts(v_o, rename))
+        np.testing.assert_array_equal(i_s, i_o)
+    finally:
+        shutdown_all(sharded, single)
 
 
 def test_a_kvstore_backend_is_taken_as_in_the_reference():
