@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's verdict and serving paths, its
-single-node agent, its agents joined through the kvstore and its
-sharded dataplane, on one NVIDIA card.
+single-node agent, its agents joined through the kvstore, its sharded
+dataplane and its L7 proxy data plane, on one NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -234,10 +234,33 @@ script exits non-zero:
    state: geometry, every endpoint's rows on its owning shard only,
    ``/flows?shard=k`` shard-attributed, a shard fault named in the
    status until recovery.
-15. the kernels line (the dense kernel's launches on the config-2, L7,
-   stage, serving, agent, kvstore and sharded paths, 0, beside those of
-   v4, v6 and the policy path), the card's name and power limit from
-   nvidia-smi, and a last line ``{"ok": true, "device": {...}}``.
+15. the L7 proxy data plane (``phase_proxy``).  ``proxy-l7``: 4,096
+   ``l7_frame`` rows over the stage legs' ``l7_serving_state`` through
+   the v4 step on the card with the L7 fast stage on; every HTTP row the
+   card redirected (absent or overlong payloads) or decided inline sends
+   its request over TCP through a ``SocketProxy`` listening at the port
+   the card answered, in front of a loopback upstream: the proxy's
+   verdicts against the redirect's ``HTTPPolicyEngine`` and the ``re``
+   oracle, and on the inline rows against the card's tier; the proxied
+   connections (``proxy_stats``).  ``proxy-batched``: 256 concurrent
+   connections through ``SocketProxy(http_batch_window=0.002)`` with the
+   HTTP engine on the card: batches, largest batch, errors, verdicts
+   against the scalar tier, and the DFA walk's kernels on the card
+   (``torch.profiler``).  ``proxy-reentry``: the marked upstream leg of
+   a proxied memcached connection as ``mark_identity`` of a v4 batch,
+   card against CPU, the unmarked twin WORLD.  ``proxy-xds``:
+   ``Daemon(device=cuda:0).serve_xds()`` and ``ProxySupervisor(device=
+   "cuda:0")``; a redirect made through ``PUT /policy`` enforced on live
+   TCP; seconds to the child's first ACK, to enforcement after ``kill
+   -9``, to a second import's ACK.  ``nat-csum``: ``nat_csum_fix`` (TCP
+   and UDP), ``csum_update_u32``, ``checksum16`` and NAT46/64 on 2**20
+   seeded rows, card against CPU, the incremental fix against the
+   recomputed checksum.
+16. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage, serving, agent, kvstore, sharded and proxy paths, 0, beside
+   those of v4, v6 and the policy path), the card's name and power
+   limit from nvidia-smi, and a last line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -249,7 +272,11 @@ import io
 import ipaddress
 import json
 import multiprocessing
+import os
 import shutil
+import signal
+import socket
+import socketserver
 import sys
 import tempfile
 import threading
@@ -277,7 +304,8 @@ from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
                                               oracle_match)
 from cilium_tpu_torch.daemon import Daemon
 from cilium_tpu_torch.daemon.rest import APIServer
-from cilium_tpu_torch.datapath import conntrack, engine, events, pipeline
+from cilium_tpu_torch.datapath import (conntrack, csum, engine, events,
+                                       nat46, pipeline)
 from cilium_tpu_torch.datapath.codes import (VERDICT_DROP, VERDICT_DROP_L7,
                                              WORLD_IDENTITY)
 from cilium_tpu_torch.datapath.pipeline import (PACKED_FIELDS,
@@ -298,6 +326,9 @@ from cilium_tpu_torch.l7.http import (HTTPPolicyEngine, HTTPRequest,
                                       rule_to_combined_regex)
 from cilium_tpu_torch.l7.http import request_line as http_request_line
 from cilium_tpu_torch.l7.kafka import KafkaPolicyEngine
+from cilium_tpu_torch.l7.parser import PortRuleL7
+from cilium_tpu_torch.l7.socket_proxy import ListenerContext, SocketProxy
+from cilium_tpu_torch.l7.supervisor import ProxySupervisor
 from cilium_tpu_torch.labels import LabelArray, Labels
 from cilium_tpu_torch.native import PKT_HEADER_DTYPE
 from cilium_tpu_torch.node import Node, NodeAddress
@@ -318,7 +349,7 @@ from cilium_tpu_torch.policy.repository import Repository
 from cilium_tpu_torch.policy.trace import Port, SearchContext
 from cilium_tpu_torch.profile_config1 import (V4_WARMUP, profile_run,
                                               profile_step)
-from cilium_tpu_torch.proxy import PROXY_PORT_MAX, proxy_id
+from cilium_tpu_torch.proxy import AccessLog, PROXY_PORT_MAX, proxy_id
 from cilium_tpu_torch.threat.model import ThreatConfig, default_model
 from cilium_tpu_torch.threat.oracle import oracle_threat_step
 from cilium_tpu_torch.threat.trainer import ThreatTrainer
@@ -326,6 +357,7 @@ from cilium_tpu_torch.utils.faultinject import (ControlPlaneFaultInjector,
                                                 DeviceFaultInjector,
                                                 FaultProxy)
 from cilium_tpu_torch.utils.option import DaemonConfig
+from cilium_tpu_torch.xds import TYPE_NETWORK_POLICY
 from cilium_tpu_torch.verdict_service import (VerdictClient, VerdictService,
                                               _decode_wire_payloads,
                                               pack_wire_payloads)
@@ -333,6 +365,7 @@ from cilium_tpu_torch.workloads import (ANALYTICS, CONFIG2_FIELDS,
                                         FQDN_SELECTORS, HTTP_RULES,
                                         KAFKA_RULES, L7_BAD_SHARES,
                                         L7_DNS_NAMES, L7_FLOW_SHARE,
+                                        L7_HTTP_PORT,
                                         L7_WINDOW, POLICY_ENDPOINT_ID_BASE,
                                         THREAT, TRAFFICS,
                                         V4_T0, Config1Run, Config2Run,
@@ -2593,13 +2626,14 @@ def verdict_service_leg(dp, lane, pool) -> dict:
     return res
 
 
-def l7_frame(pool, l7st, rng, n: int):
+def l7_frame(pool, l7st, rng, n: int, picked=None):
     """``n`` records of ``pool`` with ``PAYLOAD_L7_SHARE`` of them aimed
     at ``l7st``'s redirects (HTTP ingress :80 from its HTTP /16, DNS
     egress :53 to its DNS /16) and one match string a row: the state's
     requests and names, None (absent), and strings 1-32 bytes past the
     engine's window; other rows carry a request, which no program
-    reads.  Returns (soa, strings)."""
+    reads.  Returns (soa, strings); a ``picked`` list receives each
+    row's request or name before it was made absent or overlong."""
     soa = pool.chunk(n)
     u = rng.random(n)
     http = u < PAYLOAD_L7_SHARE / 2
@@ -2619,6 +2653,8 @@ def l7_frame(pool, l7st, rng, n: int):
     for j in range(n):
         pick = names if dns[j] else reqs
         s = pick[int(rng.integers(len(pick)))]
+        if picked is not None:
+            picked.append(s)
         k = rng.random()
         if (http[j] or dns[j]) and k < 0.1:
             s = None
@@ -4622,6 +4658,473 @@ def phase_sharded(dev, state4) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The L7 proxy data plane: the card's redirect meets the socket proxy
+# ---------------------------------------------------------------------------
+
+PROXY_ROWS = 4096
+PROXY_CT_SLOTS = 1 << 16
+PROXY_BATCHED = 256             # concurrent connections of the batched leg
+PROXY_BATCH_WINDOW = 0.002
+PROXY_NAT_ROWS = 1 << 20
+PROXY_WAIT_S = 60.0
+PROXY_IO_S = 10.0               # deadline of one socket read
+REENTRY_ID, REENTRY_PORT = 777, 9000
+OK_REPLY = b"HTTP/1.1 200 OK\r\ncontent-length: 2\r\n\r\nok"
+
+
+class ProxyUpstream(socketserver.ThreadingTCPServer):
+    """A loopback upstream: one 200 per request head (HTTP), or one
+    ``END`` per line (memcached); remembers its peers (the proxy's
+    upstream legs) and how many requests it answered."""
+
+    allow_reuse_address = True
+    daemon_threads = True
+
+    def __init__(self, kind: str, host: str = "127.0.0.1", port: int = 0):
+        self.kind = kind
+        self.peers = []
+        self.answered = 0
+        self.lock = threading.Lock()
+        super().__init__((host, port), _ProxyUpHandler)
+        self._thread = threading.Thread(target=self.serve_forever,
+                                        args=(0.05,), daemon=True)
+        self._thread.start()
+
+    @property
+    def port(self) -> int:
+        return self.server_address[1]
+
+    def close(self) -> None:
+        self.shutdown()
+        self.server_close()
+
+
+class _ProxyUpHandler(socketserver.BaseRequestHandler):
+    def handle(self):
+        srv = self.server
+        with srv.lock:
+            srv.peers.append(self.client_address)
+        sep, reply = (b"\r\n\r\n", OK_REPLY) if srv.kind == "http" else \
+            (b"\r\n", b"END\r\n")
+        buf = b""
+        while True:
+            try:
+                data = self.request.recv(65536)
+            except OSError:
+                return
+            if not data:
+                return
+            buf += data
+            while sep in buf:
+                _req, buf = buf.split(sep, 1)
+                with srv.lock:
+                    srv.answered += 1
+                self.request.sendall(reply)
+
+
+def http_call(port: int, head: bytes, host: str = "127.0.0.1") -> bytes:
+    """The response to one request on a fresh connection, read to the
+    upstream's ``ok``, the proxy's deny or EOF."""
+    try:
+        s = socket.create_connection((host, port), timeout=PROXY_IO_S)
+    except OSError:
+        return b""
+    buf = b""
+    try:
+        s.settimeout(PROXY_IO_S)
+        s.sendall(head)
+        while not buf.endswith(b"ok") and b"denied" not in buf:
+            chunk = s.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    except OSError:
+        pass
+    finally:
+        s.close()
+    return buf
+
+
+def http_head(req: HTTPRequest) -> bytes:
+    return (f"{req.method} {req.path} HTTP/1.1\r\nHost: {req.host}\r\n"
+            f"content-length: 0\r\n\r\n").encode()
+
+
+def verdict_of(resp: bytes):
+    """True (forwarded), False (denied in-protocol) or None (neither)."""
+    if resp.startswith(b"HTTP/1.1 200"):
+        return True
+    if resp.startswith(b"HTTP/1.1 403"):
+        return False
+    return None
+
+
+def request_of(match_string: str) -> HTTPRequest:
+    method, path, host = match_string.split("\x00")
+    return HTTPRequest(method=method, path=path, host=host)
+
+
+def http_listener(redirect_id: str, upstream, engine) -> ListenerContext:
+    return ListenerContext(
+        redirect_id=redirect_id, parser_type="http",
+        orig_dst=lambda peer: ("127.0.0.1", upstream.port),
+        http_engine_for=lambda peer: engine)
+
+
+def proxy_l7(dev, state4) -> dict:
+    """``l7_frame`` rows through the v4 step on the card with the L7
+    fast stage on; every HTTP row's request then goes over TCP through a
+    ``SocketProxy`` listening at the port the card redirected to."""
+    t0 = time.perf_counter()
+    l7st = l7_serving_state(state4)
+    dp = engine.Datapath(ct_slots=PROXY_CT_SLOTS, ct_probe=V4_CT_PROBE,
+                         device=dev)
+    l7st.v4.load(dp)
+    set_stages(dp, "l7fast", l7st)
+    width = dp.l7_fast_window()
+    picked = []
+    soa, strings = l7_frame(RecordPool(state4, seed=61), l7st,
+                            np.random.default_rng(62), PROXY_ROWS,
+                            picked=picked)
+    packed = torch.as_tensor(np.stack([soa[f] for f in PACKED_FIELDS]))
+    payload = torch.as_tensor(encode_payloads(strings, width))
+    v, _e, _i, _nat = dp.process_packed(packed.to(dev), now=V4_T0,
+                                        payload=payload.to(dev))
+    v = v.cpu().numpy()
+    setup_s = time.perf_counter() - t0
+    http = (soa["dport"] == 80) & (soa["direction"] == 0) & \
+        (soa["proto"] == 6)
+    redirected = http & (v > 0)
+    ports = sorted({int(p) for p in v[redirected]})
+    if ports != [L7_HTTP_PORT]:
+        raise AssertionError(f"proxy-l7: redirect ports {ports}")
+    # rows the card decided before the L7 tier (a service VIP's DNAT to
+    # another port, then the policy) are not proxy traffic
+    l7_tier = http & ((v > 0) | (v == 0) | (v == VERDICT_DROP_L7))
+    rows = np.flatnonzero(l7_tier)
+    reqs = [request_of(strings[j] if strings[j] is not None else picked[j])
+            for j in rows]
+    eng = HTTPPolicyEngine(list(HTTP_RULES), device=dev)
+    patterns = [rule_to_combined_regex(r) for r in HTTP_RULES]
+    upstream = ProxyUpstream("http")
+    proxy = SocketProxy(access_log=AccessLog())
+    rid = proxy_id(0, True, "TCP", 80)
+    try:
+        bound = proxy.start_listener(ports[0], http_listener(rid, upstream,
+                                                             eng))
+        t1 = time.perf_counter()
+        got = [verdict_of(http_call(bound, http_head(r))) for r in reqs]
+        send_s = time.perf_counter() - t1
+        stats = proxy.proxy_stats()
+    finally:
+        proxy.shutdown()
+        upstream.close()
+    want_eng = eng.check(reqs)
+    want_re = [any(oracle_match(p, http_request_line(r).encode())
+                   for p in patterns) for r in reqs]
+    mism = {"unanswered": 0, "engine": 0, "oracle": 0, "card_inline": 0}
+    counts = {"proxy_allow": 0, "proxy_deny": 0, "redirected_allow": 0,
+              "redirected_deny": 0, "inline_allow": 0, "inline_deny": 0}
+    for k, j in enumerate(rows):
+        g = got[k]
+        mism["unanswered"] += g is None
+        mism["engine"] += g != bool(want_eng[k])
+        mism["oracle"] += g != want_re[k]
+        counts["proxy_allow" if g else "proxy_deny"] += 1
+        if v[j] > 0:
+            counts["redirected_allow" if g else "redirected_deny"] += 1
+        else:
+            counts["inline_allow" if v[j] == 0 else "inline_deny"] += 1
+            mism["card_inline"] += g != (v[j] == 0)
+    return {"rows": PROXY_ROWS, "http_rows": int(http.sum()),
+            "l4_dropped": int((http & ~l7_tier).sum()),
+            "redirected": int(redirected.sum()), "port": ports[0],
+            **{k: int(x) for k, x in counts.items()},
+            "mismatches": {k: int(x) for k, x in mism.items()},
+            "proxied_connections": stats.get(rid, 0),
+            "upstream_answered": upstream.answered,
+            "setup_s": setup_s, "send_s": send_s,
+            "ms_per_connection": send_s * 1e3 / max(1, len(reqs))}
+
+
+def proxy_batched(dev) -> dict:
+    """``PROXY_BATCHED`` concurrent connections through a
+    ``SocketProxy(http_batch_window=...)`` whose HTTP engine lives on
+    the card: every verdict equal to the scalar tier, no failed batch,
+    and the DFA walk seen on the card by ``torch.profiler``."""
+    eng = HTTPPolicyEngine(list(HTTP_RULES), device=dev)
+    reqs = config3_requests(PROXY_BATCHED)
+    scalar = [eng.check_one(r) for r in reqs]
+    upstream = ProxyUpstream("http")
+    proxy = SocketProxy(access_log=AccessLog(),
+                        http_batch_window=PROXY_BATCH_WINDOW)
+    got = [None] * PROXY_BATCHED
+    try:
+        bound = proxy.start_listener(0, http_listener("batched", upstream,
+                                                      eng))
+        # one warm-up request compiles nothing but settles the lane
+        http_call(bound, http_head(reqs[0]))
+
+        def run():
+            def one(k):
+                got[k] = verdict_of(http_call(bound, http_head(reqs[k])))
+            threads = [threading.Thread(target=one, args=(k,))
+                       for k in range(PROXY_BATCHED)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=PROXY_WAIT_S)
+
+        _, busy_ms, kernels, wall = device_busy_ms(run)
+        stats = proxy._http_batchers[id(eng)][1].stats()
+    finally:
+        proxy.shutdown()
+        upstream.close()
+    return {"connections": PROXY_BATCHED, "window_s": PROXY_BATCH_WINDOW,
+            **stats, "allowed": sum(bool(g) for g in got),
+            "mismatches": sum(g != s for g, s in zip(got, scalar)),
+            "card_kernels": kernels, "card_busy_ms": busy_ms,
+            "seconds": wall}
+
+
+def proxy_reentry(dev) -> dict:
+    """The marked upstream leg of a proxied memcached connection as
+    ``mark_identity`` of a v4 batch on the card and on the CPU."""
+    outs = {}
+    upstream = ProxyUpstream("memcache")
+    proxy = SocketProxy()
+    c = None
+    try:
+        ctx = ListenerContext(
+            redirect_id="reentry", parser_type="memcache",
+            orig_dst=lambda peer: ("127.0.0.1", upstream.port),
+            l7_rules=lambda peer: [PortRuleL7.from_dict(
+                {"command": "get", "key": "*"})],
+            identities=lambda peer: (REENTRY_ID, 888))
+        c = socket.create_connection(
+            ("127.0.0.1", proxy.start_listener(0, ctx)), timeout=PROXY_IO_S)
+        c.sendall(b"get a\r\n")
+        buf = b""
+        while b"END" not in buf:
+            chunk = c.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+        leg = upstream.peers[-1]
+        mark = proxy.mark_for(leg)
+        st = PolicyMapState()
+        st[PolicyKey(identity=REENTRY_ID, dest_port=REENTRY_PORT,
+                     nexthdr=6, direction=0)] = PolicyMapStateEntry()
+        for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            dp = engine.Datapath(ct_slots=1 << 8, ct_probe=4, device=where)
+            dp.load_policy([st], revision=1, ipcache_prefixes={})
+            v, _e, ident, _n = dp.process(engine.make_full_batch(
+                endpoint=[0, 0], saddr=[leg[0]] * 2,
+                daddr=["10.5.0.2"] * 2, sport=[leg[1], leg[1] + 1],
+                dport=[REENTRY_PORT] * 2, direction=[0, 0],
+                mark_identity=[mark, 0], device=where), now=V4_T0)
+            outs[key] = (v.cpu().tolist(), ident.cpu().tolist())
+    finally:
+        if c is not None:
+            c.close()
+        proxy.shutdown()
+        upstream.close()
+    deadline = time.monotonic() + PROXY_IO_S
+    while proxy.mark_for(leg) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    (v, ident) = outs["card"]
+    return {"mark": mark, "identity": ident[0], "verdict": v[0],
+            "unmarked_identity": ident[1], "unmarked_verdict": v[1],
+            "card_equals_cpu": outs["card"] == outs["cpu"],
+            "mark_after_close": proxy.mark_for(leg)}
+
+
+def free_port(host: str) -> int:
+    probe = socket.socket()
+    probe.bind((host, 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def xds_rule(name: str, port: int, path: str) -> dict:
+    return {"endpointSelector": {"matchLabels": {"k8s:app": "proxied"}},
+            "labels": [f"k8s:rule={name}"],
+            "ingress": [{"toPorts": [{
+                "ports": [{"port": str(port), "protocol": "TCP"}],
+                "rules": {"http": [{"method": "GET", "path": path}]}}]}]}
+
+
+def proxy_xds(dev) -> dict:
+    """The agent on the card serving xDS to the supervised child on the
+    card: a redirect made through ``PUT /policy`` enforced on live TCP,
+    the child killed with SIGKILL and back, then a second import."""
+    ep_ip = "127.0.0.2"
+    to_port = free_port(ep_ip)
+    upstream = ProxyUpstream("http", host=ep_ip, port=to_port)
+    AGENT_STATE_ROOT.mkdir(parents=True, exist_ok=True)
+    state_dir = tempfile.mkdtemp(prefix="proxy-agent-",
+                                 dir=AGENT_STATE_ROOT)
+    d = Daemon(config=DaemonConfig(state_dir=state_dir,
+                                   ct_slots=PROXY_CT_SLOTS), device=dev)
+    srv = sup = None
+    res = {}
+    try:
+        srv = APIServer(d).start()
+        xds_port = d.serve_xds().port
+        rest(srv.base_url, "PUT", "/endpoint/7",
+             {"ipv4": ep_ip, "labels": ["k8s:app=proxied"]})
+        _, imp = rest(srv.base_url, "PUT", "/policy", json.dumps(
+            [xds_rule("xds-v1", to_port, "/v1/.*")]).encode())
+        if not d.wait_for_policy_revision(imp["revision"],
+                                          timeout=PROXY_WAIT_S):
+            raise AssertionError("proxy-xds: the import did not settle")
+        redir = d.proxy.get(proxy_id(7, True, "TCP", to_port))
+        v1 = d.xds_cache._version_of(TYPE_NETWORK_POLICY)
+        t0 = time.perf_counter()
+        sup = ProxySupervisor(xds_port, backoff_base=0.05,
+                              device=str(dev)).start()
+        res["child_ready_s"] = time.perf_counter() - t0
+        if not d.xds_cache.wait_for_acks(TYPE_NETWORK_POLICY,
+                                         v1).wait(PROXY_WAIT_S):
+            raise AssertionError("proxy-xds: the child never ACKed")
+        res["first_ack_s"] = time.perf_counter() - t0
+        get = lambda path: verdict_of(http_call(  # noqa: E731
+            redir.proxy_port, http_head(HTTPRequest("GET", path, "h"))))
+        res["v1"] = {"/v1/a": get("/v1/a"), "/v2/a": get("/v2/a"),
+                     "/admin": get("/admin")}
+        pid = sup.pid
+        t0 = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        while time.perf_counter() - t0 < PROXY_WAIT_S and not (
+                sup.pid not in (None, pid) and get("/v1/b") is True):
+            time.sleep(0.05)
+        res["enforce_after_kill_s"] = time.perf_counter() - t0
+        res["restarts"] = sup.restarts
+        t0 = time.perf_counter()
+        _, imp = rest(srv.base_url, "PUT", "/policy", json.dumps(
+            [xds_rule("xds-v2", to_port, "/v2/.*")]).encode())
+        if not d.wait_for_policy_revision(imp["revision"],
+                                          timeout=PROXY_WAIT_S):
+            raise AssertionError("proxy-xds: the second import stalled")
+        v2 = d.xds_cache._version_of(TYPE_NETWORK_POLICY)
+        res["v2_acked"] = d.xds_cache.wait_for_acks(
+            TYPE_NETWORK_POLICY, v2).wait(PROXY_WAIT_S)
+        res["v2_ack_s"] = time.perf_counter() - t0
+        res["v2"] = {"/v1/a": get("/v1/a"), "/v2/a": get("/v2/a"),
+                     "/admin": get("/admin")}
+        res["proxy_port"] = redir.proxy_port
+        res["nacks"] = len(d.xds_cache.nacks)
+        res["upstream_answered"] = upstream.answered
+        res["child_pid"] = sup.pid
+    finally:
+        if sup is not None:
+            sup.shutdown()
+        if srv is not None:
+            srv.shutdown()
+        d.shutdown()
+        upstream.close()
+        shutil.rmtree(state_dir, ignore_errors=True)
+    pids = [p for p in (res.get("child_pid"),) if p]
+    res["child_left"] = any(os.path.exists(f"/proc/{p}") for p in pids)
+    return res
+
+
+def nat_csum(dev) -> dict:
+    """csum and NAT46 on ``PROXY_NAT_ROWS`` seeded rows, card against
+    CPU; the incremental fix against the recomputed checksum."""
+    rng = np.random.default_rng(71)
+    n = PROXY_NAT_ROWS
+    u16 = lambda: rng.integers(0, 1 << 16, n).astype(np.int32)  # noqa
+    u32 = lambda: rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(  # noqa
+        np.uint32).view(np.int32)
+    words = rng.integers(0, 1 << 16, (n, 10)).astype(np.int32)
+    words[rng.random(n) < 0.05] = 0
+    old_a = ((words[:, 0].astype(np.uint32) << 16) |
+             words[:, 1].astype(np.uint32)).view(np.int32)
+    new_a, new_p, c16 = u32(), u16(), u16()
+    c16[rng.random(n) < 0.1] = 0
+    c16[rng.random(n) < 0.1] = 0xFFFF
+    new_words = words.copy()
+    new_words[:, 0] = (new_a.view(np.uint32) >> 16).astype(np.int32)
+    new_words[:, 1] = (new_a.view(np.uint32) & 0xFFFF).astype(np.int32)
+    new_words[:, 2] = new_p
+    prefix = (0x0064FF9B, 0, 0, 0)
+    outs = {}
+    t0 = time.perf_counter()
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = lambda a: torch.as_tensor(a).to(where)  # noqa: E731
+        base = csum.checksum16(t(words))
+        v6 = nat46.nat46_translate(t(new_a), prefix)
+        back, ok = nat46.nat64_translate(v6, prefix)
+        outs[key] = {
+            "checksum16": base,
+            "fix_tcp": csum.nat_csum_fix(base, t(old_a), t(new_a),
+                                         t(words[:, 2]), t(new_p)),
+            "fix_udp": csum.nat_csum_fix(t(c16), t(old_a), t(new_a),
+                                         t(words[:, 2]), t(new_p),
+                                         udp=True),
+            "u32": csum.csum_update_u32(t(c16), t(old_a), t(new_a)),
+            "recomputed": csum.checksum16(t(new_words)),
+            "nat46": v6, "nat64": back, "nat64_ok": ok,
+            "roundtrip": nat46.nat46_roundtrip_ok(t(new_a), prefix)}
+        outs[key] = {k: x.cpu() for k, x in outs[key].items()}
+    card, cpu = outs["card"], outs["cpu"]
+    mism = {k: int((card[k] != cpu[k]).sum()) for k in card}
+    mism["fix_vs_recomputed"] = int((card["fix_tcp"] !=
+                                     card["recomputed"]).sum())
+    mism["roundtrip_failed"] = int((~card["roundtrip"]).sum())
+    mism["udp_zero_kept"] = int((card["fix_udp"][torch.as_tensor(c16 == 0)]
+                                 != 0).sum())
+    return {"rows": n, "mismatches": mism,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_proxy(dev, state4) -> int:
+    """The L7 proxy data plane on the card; returns the dense kernel's
+    launches on its path (none)."""
+    t_phase = time.perf_counter()
+    dv.dense_verdict.launches = 0
+    l7 = proxy_l7(dev, state4)
+    emit("proxy-l7", **l7, name_power_limit=nvidia_smi("name,power.limit"))
+    batched = proxy_batched(dev)
+    emit("proxy-batched", **batched,
+         name_power_limit=nvidia_smi("name,power.limit"))
+    reentry = proxy_reentry(dev)
+    emit("proxy-reentry", **reentry)
+    xds_leg = proxy_xds(dev)
+    emit("proxy-xds", **xds_leg,
+         name_power_limit=nvidia_smi("name,power.limit"))
+    nat = nat_csum(dev)
+    emit("nat-csum", **nat)
+    launches = dv.dense_verdict.launches
+    want_v1 = {"/v1/a": True, "/v2/a": False, "/admin": False}
+    want_v2 = {"/v1/a": True, "/v2/a": True, "/admin": False}
+    counts = [sum(l7["mismatches"].values()), not l7["redirected"], not l7["inline_allow"],
+              not l7["inline_deny"], not l7["redirected_allow"],
+              not l7["redirected_deny"],
+              l7["proxied_connections"] !=
+              l7["http_rows"] - l7["l4_dropped"],
+              batched["mismatches"], batched["errors"],
+              batched["checked"] < PROXY_BATCHED,
+              batched["card_kernels"] == 0,
+              reentry["mark"] != REENTRY_ID,
+              reentry["identity"] != REENTRY_ID, reentry["verdict"] != 0,
+              reentry["unmarked_identity"] != WORLD_IDENTITY,
+              reentry["unmarked_verdict"] >= 0,
+              not reentry["card_equals_cpu"], reentry["mark_after_close"],
+              xds_leg["v1"] != want_v1, xds_leg["v2"] != want_v2,
+              not xds_leg["v2_acked"], xds_leg["restarts"] < 1,
+              xds_leg["child_left"], sum(nat["mismatches"].values())]
+    if any(counts):
+        raise AssertionError(f"proxy: {counts}")
+    emit("proxy", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": launches},
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4683,6 +5186,7 @@ def main() -> int:
             run.shutdown()
     kvstore_launches = phase_kvstore(dev)
     sharded_launches = phase_sharded(dev, state4)
+    proxy_launches = phase_proxy(dev, state4)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -4721,6 +5225,7 @@ def main() -> int:
         "daemon_path_launches": daemon_launches,
         "kvstore_path_launches": kvstore_launches,
         "sharded_path_launches": sharded_launches,
+        "proxy_path_launches": proxy_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

@@ -85,7 +85,6 @@ from ..compiler.lpm import ipv4_to_u32
 V6_SERVICE_ID_BASE = 1_000_000
 
 # the ROADMAP.md queue 1 items that bring what this slice refuses
-ITEM_XDS = "8.3 (xds, l7/xds_wire, socket_proxy, proxy_child, supervisor)"
 ITEM_HOST_INTEGRATIONS = "8.4 (k8s, cni, docker_plugin, bugtool, health)"
 
 
@@ -2067,15 +2066,64 @@ class Daemon:
     # -------------------------------------------------------- xDS wire
 
     def serve_xds(self, port: int = 0):
-        """Serve NPDS and NPHDS to out-of-process proxies over TCP (the
-        process boundary of pkg/envoy/server.go:114): not ported yet."""
-        raise not_ported("the xDS server", ITEM_XDS)
+        """Serve NPDS (proxy redirects as NetworkPolicy resources) and
+        NPHDS (ip -> identity) to out-of-process proxies over TCP —
+        the process boundary of pkg/envoy/server.go:114.  Policy pushes
+        can then block on cross-process ACKs via
+        ``xds_cache.wait_for_acks``."""
+        from ..l7.xds_wire import XDSWireServer
+        from ..xds import (Cache, TYPE_NETWORK_POLICY,
+                           TYPE_NETWORK_POLICY_HOSTS,
+                           host_mapping_resources)
+        if getattr(self, "_xds_server", None) is not None:
+            return self._xds_server
+        self.xds_cache = Cache()
+        self._xds_server = XDSWireServer(self.xds_cache,
+                                         port=port).start()
+
+        def publish_hosts(*_a):
+            pairs = {p.prefix: p.identity for p in self.ipcache.dump()}
+            self.xds_cache.set_resources(
+                TYPE_NETWORK_POLICY_HOSTS,
+                host_mapping_resources(pairs))
+
+        self.ipcache.add_listener(lambda *a: publish_hosts(),
+                                  replay=False)
+        publish_hosts()
+
+        def publish_npds():
+            resources = {}
+            for r in self.proxy.redirects():
+                http_rules = []
+                if r.l7_filter is not None:
+                    for rules in r.l7_filter.l7_rules_per_ep.values():
+                        for hr in getattr(rules, "http", []) or []:
+                            http_rules.append({
+                                "method": hr.method, "path": hr.path,
+                                "host": hr.host})
+                # the child's orig-dst: for an ingress redirect the
+                # upstream is the endpoint itself on the original port
+                ep = self.endpoints.lookup(r.endpoint_id)
+                up_host = (ep.ipv4 if ep is not None and ep.ipv4
+                           else "127.0.0.1")
+                resources[r.id] = {
+                    "name": r.id, "policy": self.repo.revision,
+                    "proxy_port": r.proxy_port,
+                    "upstream": [up_host, r.to_port],
+                    "http_rules": http_rules}
+            self.xds_cache.set_resources(TYPE_NETWORK_POLICY, resources)
+
+        self.proxy.on_change = publish_npds
+        publish_npds()
+        return self._xds_server
 
     def shutdown(self) -> None:
         if getattr(self, "hubble", None) is not None:
             self.hubble.close()
         if getattr(self, "_monitor_server", None) is not None:
             self._monitor_server.shutdown()
+        if getattr(self, "_xds_server", None) is not None:
+            self._xds_server.shutdown()
         self.endpoints.shutdown()
         self._regen_trigger.shutdown()
         self._lpm_trigger.shutdown()

@@ -166,7 +166,7 @@ class ContinuousDispatcher:
 
     def __init__(self, launch: Callable, finalize: Callable,
                  deny: Callable, *, max_batch: int = 1 << 15,
-                 depth: int = 2,
+                 depth: int = 2, window: float = 0.0,
                  weight: Callable = lambda item: 1,
                  lane: str = "serving",
                  telemetry: Callable[[], bool] = lambda: True,
@@ -178,6 +178,7 @@ class ContinuousDispatcher:
         self._deny = deny
         self.max_batch = max_batch
         self.depth = max(1, depth)
+        self.window = window
         self._weight = weight
         self.lane = lane
         self.family = f"serving-{lane}"
@@ -269,12 +270,17 @@ class ContinuousDispatcher:
 
     def _take_batch(self, wait: bool):
         """Drain up to ``max_batch`` worth of pending items.  With
-        ``wait`` (nothing in flight), blocks for work; a busy pipeline
-        coalesces naturally while batches compute."""
+        ``wait`` (nothing in flight), blocks for work; a nonzero
+        collection ``window`` then lets concurrent submitters pile in
+        before the first drain (the ``VerdictBatcher`` micro-batch
+        window, paid only from idle); a busy pipeline coalesces
+        naturally while batches compute."""
         with self._cond:
             if wait:
                 while not self._pending and not self._closed:
                     self._cond.wait()
+        if wait and self.window > 0 and not self._closed:
+            time.sleep(self.window)
         batch: List[Tuple[object, Ticket]] = []
         expired: List[Tuple[object, Ticket]] = []
         total = 0

@@ -6,8 +6,9 @@ egress rules are realized by resolving matchNames on an interval
 rewriting the rules with generated ``ToCIDRSet`` entries
 (``inject_to_cidr_set``) that re-enter the policy import path; those
 three are host copies.  Every FQDN selector compiles into one DFA table,
-and names are matched in batch on the engine's device; single lookups
-(``allowed_one``) go through the batched engine.
+and names are matched in batch on the engine's device; a single lookup
+(``allowed_one``) walks the same table on the host in C++
+(``native.ScalarDFA``), whose failed build raises.
 """
 
 from __future__ import annotations
@@ -104,6 +105,8 @@ class DNSPolicyEngine:
             self._engine = DFAEngine(self._compiled, MAX_NAME_LEN,
                                      batch_hint=batch_hint,
                                      on_accel=on_accel, device=self.device)
+            from ..native import ScalarDFA
+            self._scalar = ScalarDFA(self._compiled)
 
     def encode(self, names: Sequence[str]) -> Optional[np.ndarray]:
         """Host encode: names -> padded byte block (numpy); None when no
@@ -183,10 +186,14 @@ class DNSPolicyEngine:
         return _any_hit(self.match(names))
 
     def allowed_one(self, name: str) -> bool:
-        """One live lookup, through the batched engine."""
+        """One live lookup, walked on the host (same answer as
+        ``allowed``)."""
         if self._compiled is None:
             return False
-        return bool(self.allowed([name])[0])
+        data = _canon(name).encode()
+        if len(data) > MAX_NAME_LEN:
+            return False
+        return bool(self._scalar.match(data).any())
 
 
 def inject_to_cidr_set(rule: Rule, cache: DNSCache,

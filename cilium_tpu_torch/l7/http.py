@@ -11,9 +11,12 @@ string ``method \\x00 path \\x00 host``, so the rule set is R DFAs walked
 together; headers compile to one DFA per requirement over a canonical
 ``\\x01name: value\\x01...`` block, AND-combined per rule on the device.
 
-Single requests (``check_one``) go through the same batched engine on the
-engine's device; the reference's optional C++ scalar walker is not part
-of the port.
+Two tiers, as in the reference: batches walk the tables on the engine's
+device; a single live request (``check_one``) walks the same compiled
+tables on the host in C++ (``native.ScalarDFA``, the
+envoy/cilium_l7policy.cc analog), with no device round trip.  The
+reference falls back to the batched tier when its native build fails;
+here a failed build raises.
 """
 
 from __future__ import annotations
@@ -137,6 +140,10 @@ class HTTPPolicyEngine:
             for ri, (s, e) in enumerate(self._header_slices):
                 hmap[s:e] = ri
             self._hmap = torch.as_tensor(hmap, device=self.device)
+        from ..native import ScalarDFA
+        self._scalar = ScalarDFA(self._combined)
+        self._h_scalar = ScalarDFA(self._headers) \
+            if self._headers is not None else None
 
     def encode(self, requests: Sequence[HTTPRequest]):
         """Host encode: requests -> padded byte blocks (numpy), as
@@ -234,7 +241,24 @@ class HTTPPolicyEngine:
         return out
 
     def check_one(self, request: HTTPRequest) -> bool:
-        """One live request, through the batched engine."""
+        """One live request — the proxy's per-connection path, walked on
+        the host (same verdict as ``check``)."""
         if self._combined is None:
             return True
-        return bool(self.check([request])[0])
+        line = request_line(request).encode()
+        if len(line) > MAX_REQUEST_LINE:
+            return False  # overlong never matches (encode_strings -2)
+        rule_hit = self._scalar.match(line)                # [R]
+        if self._h_scalar is not None and rule_hit.any():
+            block = _header_block(request).encode()
+            if len(block) > MAX_HEADER_BLOCK:
+                # an overlong block poisons the header patterns only
+                # (the -2 row): rules with header requirements fail,
+                # header-less rules still stand, as in the batched tier
+                hdr_hit = np.zeros(self._h_scalar.num_regex, bool)
+            else:
+                hdr_hit = self._h_scalar.match(block)      # [H]
+            for ri, (s, e) in enumerate(self._header_slices):
+                if e > s:
+                    rule_hit[ri] &= hdr_hit[s:e].all()
+        return bool(rule_hit.any())

@@ -14,9 +14,10 @@ Bound here:
   tier;
 - ``VerdictCache``: the exact-match (key_a, key_b) -> verdict cache with
   the whole three-stage ``__policy_can_access`` fallback in one call,
-  under the host fast path (``native/fastpath.HostVerdictPath``).
-
-The source's ``ScalarDFA`` functions are compiled but not bound.
+  under the host fast path (``native/fastpath.HostVerdictPath``);
+- ``ScalarDFA``: the host walk of one byte string over a compiled
+  stacked DFA table, the single-request tier of the HTTP and DNS
+  engines (``check_one`` / ``allowed_one``).
 """
 
 from __future__ import annotations
@@ -121,6 +122,9 @@ def load() -> ctypes.CDLL:
         lib.vc_slots.argtypes = [vp]
         lib.vc_flush.restype = None
         lib.vc_flush.argtypes = [vp]
+        lib.dfa_match_scalar.restype = u64
+        lib.dfa_match_scalar.argtypes = [p(i32), p(u8), p(i32), u64,
+                                         p(u8), u64, p(u8)]
         _lib = lib
         return lib
 
@@ -285,3 +289,36 @@ class VerdictCache:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter teardown
             pass
+
+
+class ScalarDFA:
+    """Host walker over a compiled stacked DFA table (``compiler/regexc.
+    CompiledRegexSet``: table [S, 256] int32, accept [S], starts [R],
+    state 0 dead), the live proxy's per-request match
+    (envoy/cilium_l7policy.cc analog).  It holds contiguous host copies
+    of the same arrays the device engines walk, so both tiers share one
+    compiled artifact."""
+
+    def __init__(self, compiled):
+        self._lib = load()
+        self._table = np.ascontiguousarray(compiled.table, np.int32)
+        self._accept = np.ascontiguousarray(
+            compiled.accept.astype(np.uint8))
+        self._starts = np.ascontiguousarray(compiled.starts, np.int32)
+        self.num_regex = len(self._starts)
+        p32 = ctypes.POINTER(ctypes.c_int32)
+        pu8 = ctypes.POINTER(ctypes.c_uint8)
+        self._t = self._table.ctypes.data_as(p32)
+        self._a = self._accept.ctypes.data_as(pu8)
+        self._s = self._starts.ctypes.data_as(p32)
+
+    def match(self, data: bytes) -> np.ndarray:
+        """[R] bool anchored-match mask for one byte string."""
+        out = np.empty(self.num_regex, np.uint8)
+        buf = (ctypes.c_uint8 * len(data)).from_buffer_copy(data) \
+            if data else (ctypes.c_uint8 * 1)()
+        self._lib.dfa_match_scalar(
+            self._t, self._a, self._s, self.num_regex,
+            ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8)), len(data),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        return out.astype(bool)

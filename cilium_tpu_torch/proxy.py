@@ -9,10 +9,11 @@ every redirect owns a compiled batched engine (HTTP DFAs, Kafka ACLs, or
 a registered custom parser) plus an access-log stream
 (pkg/proxy/logger analog).
 
-Copy of ``cilium_tpu/proxy.py`` without the socket data plane
-(``enable_dataplane``, ``activate_redirect``, ``shutdown_dataplane`` and
-``l7/socket_proxy`` behind them), which waits; the redirects' HTTP
-engines run on the manager's device.
+A copy of ``cilium_tpu/proxy.py``.  The socket data plane
+(``l7/socket_proxy.SocketProxy``) starts on ``enable_dataplane``;
+``activate_redirect`` binds a redirect's proxy port there and
+``remove_redirect`` closes it.  The redirects' HTTP engines run on the
+manager's device.
 """
 
 from __future__ import annotations
@@ -123,6 +124,8 @@ class ProxyManager:
         self.port_min = port_min
         self.port_max = port_max
         self.access_log = AccessLog()
+        # socket data plane (l7/socket_proxy.py), created on demand
+        self.dataplane = None
         self.parser_instance = ParserInstance(
             access_logger=lambda d: self.access_log.log(AccessLogEntry(
                 timestamp=time.time(), proxy_id=str(d.get("conn_id")),
@@ -173,10 +176,68 @@ class ProxyManager:
             if redir is None:
                 return False
             self._ports_in_use.discard(redir.proxy_port)
+        if self.dataplane is not None:
+            try:
+                self.dataplane.stop_listener(rid)
+            except Exception:  # noqa: BLE001
+                pass
         cb = getattr(self, "on_change", None)
         if cb is not None:
             cb()
         return True
+
+    # -- socket data plane ---------------------------------------------------
+
+    def enable_dataplane(self, host: str = "127.0.0.1"):
+        """Start the socket-level proxy data plane (lazy import keeps
+        asyncio out of pure-policy deployments)."""
+        if self.dataplane is None:
+            from .l7.socket_proxy import SocketProxy
+            self.dataplane = SocketProxy(access_log=self.access_log,
+                                         host=host)
+        return self.dataplane
+
+    def activate_redirect(self, redir: Redirect,
+                          orig_dst: Callable,
+                          remote_labels: Optional[Callable] = None,
+                          identities: Optional[Callable] = None) -> int:
+        """Bind the redirect's proxy port on the data plane.
+
+        orig_dst(peer_addr) -> (host, port): the proxymap analog
+        resolving the flow's original destination.
+        remote_labels(peer_addr) -> LabelArray: peer identity labels for
+        per-selector rule resolution (l4.go GetRelevantRules).
+        Returns the bound port (== redir.proxy_port).
+        """
+        from .l7.socket_proxy import ListenerContext
+        dataplane = self.enable_dataplane()
+        labels_of = remote_labels or (lambda addr: None)
+
+        def l7_rules(addr):
+            if redir.l7_filter is None:
+                return []
+            rules = redir.l7_filter.l7_rules_per_ep.get_relevant_rules(
+                labels_of(addr))
+            return list(rules.l7) if rules and rules.l7 else []
+
+        ctx = ListenerContext(
+            redirect_id=redir.id,
+            parser_type=redir.parser_type,
+            orig_dst=orig_dst,
+            l7_rules=l7_rules,
+            identities=identities or (lambda addr: (0, 0)),
+            http_engine_for=lambda addr: redir.engines_for(
+                labels_of(addr), device=self.device)
+            if redir.parser_type == PARSER_TYPE_HTTP else None,
+            kafka_engine_for=lambda addr: redir.engines_for(
+                labels_of(addr)) if redir.parser_type ==
+            PARSER_TYPE_KAFKA else None)
+        return dataplane.start_listener(redir.proxy_port, ctx)
+
+    def shutdown_dataplane(self) -> None:
+        if self.dataplane is not None:
+            self.dataplane.shutdown()
+            self.dataplane = None
 
     def get(self, rid: str) -> Optional[Redirect]:
         with self._lock:

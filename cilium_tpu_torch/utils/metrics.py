@@ -330,6 +330,8 @@ THREAT_MODEL_GENERATION = registry.gauge(
     "threat_model_generation",
     "Generation of the threat-scoring model currently serving "
     "(bumped on every weight hot-swap)")
+PROXY_UPSTREAM_TIME = registry.histogram(
+    "proxy_upstream_reply_seconds", "Proxy upstream reply time")
 DROP_COUNT = registry.counter(
     "drop_count_total", "Dropped packets by reason")
 FORWARD_COUNT = registry.counter(

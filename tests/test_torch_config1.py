@@ -236,7 +236,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Run in a fresh interpreter (conftest imports jax into this one):
     every module of the port, and chip_smoke.py, import without jax and
     without any module of the JAX package; the agent's modules (daemon,
-    REST, CLI, monitor, Hubble, clustermesh) are among them."""
+    REST, CLI, monitor, Hubble, clustermesh) and the proxy plane's (xDS,
+    socket proxy, proxy child, supervisor, csum, NAT46) are among
+    them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cilium_tpu_torch\n"
@@ -251,7 +253,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "agent = ['cilium_tpu_torch.' + m for m in (\n"
         "    'daemon', 'daemon.rest', 'cli', 'monitor', 'hubble',\n"
         "    'clustermesh', 'kvstore.etcd', 'kvstore.outage',\n"
-        "    'kvstore.serve')]\n"
+        "    'kvstore.serve', 'xds', 'l7.xds_wire', 'l7.socket_proxy',\n"
+        "    'l7.proxy_child', 'l7.supervisor', 'datapath.csum',\n"
+        "    'datapath.nat46')]\n"
         "assert set(agent) <= set(mods), sorted(set(agent) - set(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -17,8 +17,10 @@ controller (wall clock, every 5 s) keeps every entry they create.
 import json
 import os
 import shutil
+import socket
 import threading
 import time
+import urllib.request
 
 import jax.numpy as jnp
 import numpy as np
@@ -590,11 +592,97 @@ def test_old_state_dir_restores_in_both(tmp_path):
 # -------------------------------------------------------------- refusals
 
 def test_later_slices_are_refused_by_name(tmp_path):
+    """The agent refuses nothing of queue 1 item 8.3 any more: its xDS
+    server starts (once) and stops with the agent; the host
+    integrations (item 8.4) are still refused by name."""
+    from cilium_tpu_torch.daemon import daemon as daemon_mod
+    assert not hasattr(daemon_mod, "ITEM_XDS")
+    assert "item 8.4" in str(daemon_mod.not_ported(
+        "the 'cni' command", daemon_mod.ITEM_HOST_INTEGRATIONS))
     d = start_agent(PORT, str(tmp_path / "s"))
     try:
-        with pytest.raises(NotImplementedError, match="item 8.3"):
-            d.serve_xds()
+        server = d.serve_xds()
+        assert server.port > 0 and d.serve_xds() is server
     finally:
+        d.shutdown()
+    with pytest.raises(OSError):
+        socket.create_connection(("127.0.0.1", server.port),
+                                 timeout=2).close()
+
+
+def test_the_agent_serves_xds(tmp_path):
+    """A redirect made through the REST policy import reaches an xDS
+    client as an NPDS resource (its proxy port, the endpoint as the
+    upstream, the rule's HTTP match), the endpoint's address reaches it
+    through NPHDS, and a second import's push completes on the client's
+    ACK with the rules of both."""
+    from cilium_tpu_torch.daemon.rest import APIServer
+    from cilium_tpu_torch.l7.xds_wire import XDSWireClient
+    from cilium_tpu_torch.xds import (TYPE_NETWORK_POLICY,
+                                      TYPE_NETWORK_POLICY_HOSTS)
+
+    def rest(method, path, body):
+        req = urllib.request.Request(
+            srv.base_url + path, method=method,
+            data=body if isinstance(body, bytes) else
+            json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=WAIT_S) as resp:
+            return json.loads(resp.read())
+
+    def rule(name, path):
+        return {"endpointSelector": {"matchLabels": {"k8s:app": "web"}},
+                "labels": [f"k8s:rule={name}"],
+                "ingress": [{"toPorts": [{
+                    "ports": [{"port": "8080", "protocol": "TCP"}],
+                    "rules": {"http": [{"method": "GET", "path": path}]}}]}]}
+
+    d = start_agent(PORT, str(tmp_path / "s"))
+    srv = client = None
+    try:
+        srv = APIServer(d).start()
+        server = d.serve_xds()
+        got, hosts, versions = {}, {}, []
+
+        def apply(store, v, res):
+            store.clear()
+            store.update(res)
+            versions.append(v)
+            return True
+
+        client = XDSWireClient(server.port, client="agent-test")
+        client.subscribe(TYPE_NETWORK_POLICY,
+                         lambda v, res: apply(got, v, res))
+        client.subscribe(TYPE_NETWORK_POLICY_HOSTS,
+                         lambda v, res: apply(hosts, v, res))
+        rest("PUT", "/endpoint/7", {"ipv4": "10.66.0.7",
+                                    "labels": ["k8s:app=web"]})
+        rev = rest("PUT", "/policy", json.dumps(
+            [rule("xds-v1", "/v1/.*")]).encode())["revision"]
+        assert d.wait_for_policy_revision(rev, timeout=WAIT_S)
+        deadline = time.time() + WAIT_S
+        while time.time() < deadline and not got:
+            time.sleep(0.02)
+        (rid, res), = got.items()
+        redir = d.proxy.get(rid)
+        assert rid == "7:ingress:TCP:8080" and redir is not None
+        assert res["proxy_port"] == redir.proxy_port
+        assert res["upstream"] == ["10.66.0.7", 8080]
+        assert res["http_rules"] == [{"method": "GET", "path": "/v1/.*",
+                                      "host": ""}]
+        assert any("10.66.0.7/32" in h["host_addresses"]
+                   for h in hosts.values())
+        rev2 = rest("PUT", "/policy", json.dumps(
+            [rule("xds-v2", "/v2/.*")]).encode())["revision"]
+        assert d.wait_for_policy_revision(rev2, timeout=WAIT_S)
+        v = d.xds_cache._version_of(TYPE_NETWORK_POLICY)
+        assert d.xds_cache.wait_for_acks(TYPE_NETWORK_POLICY, v).wait(10)
+        assert sorted(r["path"] for r in got[rid]["http_rules"]) == \
+            ["/v1/.*", "/v2/.*"]
+    finally:
+        if client is not None:
+            client.close()
+        if srv is not None:
+            srv.shutdown()
         d.shutdown()
 
 
