@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's verdict and serving paths, its
 single-node agent, its agents joined through the kvstore, its sharded
-dataplane and its L7 proxy data plane, on one NVIDIA card.
+dataplane, its L7 proxy data plane and its host integrations
+(Kubernetes, CNI, docker, cilium-health, bugtool, the packing manifest),
+on one NVIDIA card.
 
 Run from the root of a checkout, with no arguments:
 
@@ -161,7 +163,7 @@ script exits non-zero:
    processes) with redirects against the ``ProxyManager``'s ports, and
    the hash step and the dense step (the CUDA kernel) over
    ``states_by_slot()`` against ``oracle_verdict`` on the whole batch.
-   ``policy-timing``: ``process_packed``, both steps and the kernel, 50
+   ``policy-timing``: ``process_packed``, both steps and the kernel, 25
    timed calls each.  ``policy-propagation``: on a BASELINE-config-1
    sized state (100 rules), 10 single-rule adds and 10 deletes, each
    timed to the engine's ``on_revision_served`` and to the batch in
@@ -256,11 +258,61 @@ script exits non-zero:
    and UDP), ``csum_update_u32``, ``checksum16`` and NAT46/64 on 2**20
    seeded rows, card against CPU, the incremental fix against the
    recomputed checksum.
-16. the kernels line (the dense kernel's launches on the config-2, L7,
-   stage, serving, agent, kvstore, sharded and proxy paths, 0, beside
-   those of v4, v6 and the policy path), the card's name and power
-   limit from nvidia-smi, and a last line ``{"ok": true, "device":
-   {...}}``.
+16. the host integrations (``phase_hostint``): ``workloads.policy_state``'s
+   1,000 rules over 16 local pods and 24 remote ones as Kubernetes
+   objects in the port's ``FakeAPIServer`` (every other rule a
+   NetworkPolicy can say as one, the rest CNPs; 8 CNPs whose egress
+   names a service), 256 Nodes with pod CIDRs and v4 / v6 addresses,
+   1,000 ClusterIP Services of 4 pod backends with their Endpoints.
+   Agent A on the card takes its pods through CNI ADD over its REST API
+   and the rest through ``K8sTransport`` and ``K8sWatcher``; the twin B
+   gets the same pods through CNI ADD and the rest by hand (the pods'
+   addresses as the watcher enters them, ``node_updated``, the rules
+   from ``parse_cnp`` / ``parse_network_policy`` with the services'
+   backends translated in, ``service_upsert``).  ``k8s-sync``: seconds
+   from ``start()`` to every endpoint ready with the tunnel map, the
+   pods and the services on A's card (the Services are created after
+   the first sync: the watcher programs a service's backends on its
+   Service event, as the reference's does; the pods come after the
+   policies, one by one as kubelet runs them, and a
+   ``trigger_policy_updates`` round follows them, since the local
+   identity allocator rebuilds nothing when a later pod's identity
+   appears: ``k8s_sync`` reports the round's seconds and the map-state
+   entries it changed); 2**20 rows, 4,096 of them to
+   service VIPs, through both agents, every output and buffer equal
+   (identities renamed by labels, proxy ports by redirect id), each VIP
+   row DNAT'd to one of its service's backends.
+   ``k8s-propagation`` (in a worker process beside ``k8s-sync``, with
+   ``packing``): ``policy-propagation``'s state (100 rules) behind its
+   own apiserver: 10 CNP upserts and 10 deletes, each timed from
+   ``FakeAPIServer.upsert`` / ``delete`` to the batch in which the flow
+   it opens or closes flips on the card.  ``k8s-relist``: a marker
+   namespace, ``compact()`` and ``disconnect_watchers()``: every other
+   reflector relists, the resourceVersion dedup skips every object it
+   re-delivers, no event applies, and 2**16 rows keep their verdicts
+   from the same CT state.  ``cni-docker``: on both agents a CNI ADD,
+   a libnetwork RequestAddress / CreateEndpoint / Join over the
+   plugin's HTTP, a ``WorkloadWatcher`` start, and (on A) a container
+   started in a small dockerd on a unix socket that a
+   ``DockerEventWatcher`` follows: each endpoint's rows equal the twin's
+   and, where a rule selects it, some are allowed; after CNI DEL,
+   Leave, the stop and die events no row is.  ``health``:
+   ``HealthProber`` over A's nodes with ``make_icmp6_probe``, 32 nodes
+   and A's own served by an engine on the card (one ``process6`` row a
+   probe): exactly those reachable; TCP probes against a
+   ``HealthResponder`` healthy, then not after it shuts down.
+   ``bugtool``: ``collect_remote`` and ``collect`` against A: the
+   members, none failed, and ``status.json`` naming the card.
+   ``packing``: the manifest of the full-width v4 and v6 serving tables
+   on the card, the unpacked views equal to the leaves and inside the
+   group buffers, a v4 step on the views against the step on the
+   tables at 2**20 rows from the same CT state, and policy rows written
+   by ``refresh_policy`` against ``make_policy_row_writer``'s.
+17. the kernels line (the dense kernel's launches on the config-2, L7,
+   stage, serving, agent, kvstore, sharded, proxy and host-integration
+   paths, 0, beside those of v4, v6 and the policy path), the card's
+   name and power limit from nvidia-smi, and a last line ``{"ok": true,
+   "device": {...}}``.
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -268,6 +320,7 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import ipaddress
 import json
@@ -281,6 +334,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from collections import deque
 
@@ -289,15 +343,19 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from cilium_tpu_torch import convert, kernels, sass_mix
+from cilium_tpu_torch import (bugtool, convert, docker_plugin, health,
+                              kernels, runtime_watch, sass_mix)
+from cilium_tpu_torch import cni as cni_mod
 from cilium_tpu_torch.analytics.decode import (quiesced_section,
                                                top_prefixes, top_scanners,
                                                top_talkers)
 from cilium_tpu_torch.analytics.oracle import oracle_analytics_step
+from cilium_tpu_torch.cli import Client
 from cilium_tpu_torch.cli import main as cli_main
 from cilium_tpu_torch.compiler.bucket_tables import compile_states_bucketed
 from cilium_tpu_torch.compiler.lpm import (LPM_MISS, compile_lpm,
-                                           oracle_lpm_u32, parse_prefixes)
+                                           ipv4_to_u32, oracle_lpm_u32,
+                                           parse_prefixes)
 from cilium_tpu_torch.compiler.policy_tables import (compile_endpoints,
                                                      oracle_verdict)
 from cilium_tpu_torch.compiler.regexc import (compile_regex_set,
@@ -316,9 +374,17 @@ from cilium_tpu_torch.datapath.serving import VerdictDispatcher
 from cilium_tpu_torch.datapath.supervisor import DeviceSupervisor
 from cilium_tpu_torch.device import cuda_ms, host_buffer, nvidia_smi, probe
 from cilium_tpu_torch.hubble.aggregation import EVENT_BIAS
-from cilium_tpu_torch.identity import (IdentityCache,
+from cilium_tpu_torch.endpoint.tables import DeviceTableManager
+from cilium_tpu_torch.identity import (RESERVED_UNMANAGED, IdentityCache,
                                        is_local_scope_identity)
 from cilium_tpu_torch.ipcache.ipcache import SOURCE_KVSTORE
+from cilium_tpu_torch.k8s import K8sWatcher
+from cilium_tpu_torch.k8s import parse_cnp as k8s_parse_cnp
+from cilium_tpu_torch.k8s import \
+    parse_network_policy as k8s_parse_network_policy
+from cilium_tpu_torch.k8s import translate as k8s_translate
+from cilium_tpu_torch.k8s.client import K8sTransport
+from cilium_tpu_torch.k8s.fake_apiserver import FakeAPIServer
 from cilium_tpu_torch.kvstore import EtcdBackend, MiniEtcd
 from cilium_tpu_torch.l7.dns import DNSPolicyEngine
 from cilium_tpu_torch.l7.fast import encode_payloads
@@ -339,7 +405,7 @@ from cilium_tpu_torch.ops import dfa_ops
 from cilium_tpu_torch.ops.dfa_engine import DFAEngine
 from cilium_tpu_torch.ops.dfa_parallel import dfa_scan_sharded
 from cilium_tpu_torch.ops.lpm_ops import lpm_lookup
-from cilium_tpu_torch.parallel import ShardedDatapath, make_mesh
+from cilium_tpu_torch.parallel import ShardedDatapath, make_mesh, packing
 from cilium_tpu_torch.parallel.mesh import DP_AXIS
 from cilium_tpu_torch.policy.api import Decision, PortRuleHTTP
 from cilium_tpu_torch.policy.jsonio import rules_from_json
@@ -366,7 +432,8 @@ from cilium_tpu_torch.workloads import (ANALYTICS, CONFIG2_FIELDS,
                                         KAFKA_RULES, L7_BAD_SHARES,
                                         L7_DNS_NAMES, L7_FLOW_SHARE,
                                         L7_HTTP_PORT,
-                                        L7_WINDOW, POLICY_ENDPOINT_ID_BASE,
+                                        L7_WINDOW, POLICY_APPS,
+                                        POLICY_ENDPOINT_ID_BASE,
                                         THREAT, TRAFFICS,
                                         V4_T0, Config1Run, Config2Run,
                                         PolicyRun, V4Run, V6Run,
@@ -2150,7 +2217,7 @@ SERVING_CHUNKS = 6            # chunks per submitter in the parity leg
 SERVING_MAX_CHUNK = 4096
 SERVING_OUTSTANDING = 2       # tickets a submitter keeps unresolved
 LATENCY_SIZES = (1, 16, 64, 256, 1024, 4096)
-LATENCY_ITERS = 150
+LATENCY_ITERS = 30
 COALESCE_FRAMES = 40
 THROUGHPUT_CHUNK = 4096
 THROUGHPUT_ROUNDS = 12        # each submitter cycles its two chunks
@@ -3037,7 +3104,7 @@ POLICY_PROPAGATION = (100, 16, 24, 8)   # peers, CIDRs
 POLICY_BATCH = 1 << 20
 POLICY_CT_SLOTS = 1 << 21
 POLICY_NOW = V4_T0
-POLICY_TIMED = 50
+POLICY_TIMED = 25
 POLICY_CYCLE = 4          # distinct batches the timed process_packed cycles
 POLICY_CHANGES = 10       # single-rule adds, and as many deletes
 POLICY_PROBE_BATCH = 4096  # rows of each batch served while a change spreads
@@ -3558,12 +3625,12 @@ def rest(url: str, method: str, path: str, body=None):
         return resp.status, json.loads(resp.read())
 
 
-def start_agent(dev, state_dir: str):
-    """(Daemon, APIServer on port 0, seconds to both up) on ``dev``, with
-    the conntrack geometry of ``phase_policy``'s run."""
+def start_agent(dev, state_dir: str, ct_slots: int = POLICY_CT_SLOTS):
+    """(Daemon, APIServer on port 0, seconds to both up) on ``dev``, by
+    default with the conntrack geometry of ``phase_policy``'s run."""
     t0 = time.perf_counter()
     d = Daemon(config=DaemonConfig(state_dir=state_dir,
-                                   ct_slots=POLICY_CT_SLOTS), device=dev)
+                                   ct_slots=ct_slots), device=dev)
     try:
         srv = APIServer(d).start()
     except BaseException:
@@ -3865,23 +3932,40 @@ def rename_ids(arr, rename: dict) -> np.ndarray:
     return mapped[inv].reshape(arr.shape)
 
 
-def map_state_gap(a, r, rename: dict) -> int:
-    """Map-state entries in which agent ``a`` and agent ``r`` differ,
-    endpoint by endpoint id: ``a``'s identities renamed through
-    ``rename`` and its proxy ports to ``r``'s through the redirect ids."""
+def map_state_diff(a, r, rename: dict) -> list:
+    """The map-state entries in which agent ``a`` and agent ``r``
+    differ, endpoint by endpoint id: ``a``'s identities renamed through
+    ``rename`` and its proxy ports to ``r``'s through the redirect ids;
+    each as {endpoint, key (identity, port, proto, direction), the
+    agent that holds it, its proxy port, the endpoint's identity and
+    policy revision there}."""
     redirect_of = {x.proxy_port: x.id for x in a.proxy.redirects()}
     port_in_r = {x.id: x.proxy_port for x in r.proxy.redirects()}
     by_slot = [policy_map_states(a, rename), policy_map_states(r)]
-    gap = 0
-    for ep in {e.id for e in a.endpoints.endpoints()} | \
-            {e.id for e in r.endpoints.endpoints()}:
-        got = [by_slot[k].get(getattr(d.endpoints.lookup(ep),
-                                      "table_slot", None), {})
-               for k, d in enumerate((a, r))]
+    out = []
+    for ep in sorted({e.id for e in a.endpoints.endpoints()} |
+                     {e.id for e in r.endpoints.endpoints()}):
+        eps = [d.endpoints.lookup(ep) for d in (a, r)]
+        got = [by_slot[k].get(getattr(e, "table_slot", None), {})
+               for k, e in enumerate(eps)]
         renamed = {(key, port_in_r.get(redirect_of.get(v), v) if v else 0)
                    for key, v in got[0].items()}
-        gap += len(renamed ^ set(got[1].items()))
-    return gap
+        for which, (key, port) in sorted(
+                [("a", x) for x in renamed - set(got[1].items())] +
+                [("r", x) for x in set(got[1].items()) - renamed]):
+            e = eps[0 if which == "a" else 1]
+            out.append({"endpoint": ep, "key": list(key), "in": which,
+                        "proxy_port": port,
+                        "endpoint_identity": getattr(
+                            e, "security_identity", None),
+                        "policy_revision": getattr(
+                            e, "policy_revision", None)})
+    return out
+
+
+def map_state_gap(a, r, rename: dict) -> int:
+    """How many map-state entries ``map_state_diff`` finds."""
+    return len(map_state_diff(a, r, rename))
 
 
 def kvstore_converged(a, r, timeout: float = KVSTORE_WAIT_S):
@@ -4085,7 +4169,15 @@ def phase_kvstore(dev) -> int:
                           out_r[1].cpu().numpy()).sum()),
             "identity": int((rename_ids(out_a[2].cpu().numpy(), rename) !=
                              out_r[2].cpu().numpy()).sum())}
-        new_bad["map_state"] = map_state_gap(a, r, rename)
+        diff = map_state_diff(a, r, rename)
+        new_bad["map_state"] = len(diff)
+        if diff:
+            # what the promotion left apart, for the open fault of
+            # ROADMAP §3: the entries, and each side's identities
+            emit("kvstore-outage-diff", entries=diff[:64],
+                 local_id=local_id, promoted_id=promoted_id,
+                 rename={str(k): v for k, v in rename.items() if k != v},
+                 a_revision=a.repo.revision, r_revision=r.repo.revision)
         events_needed = {"kvstore-degraded", "kvstore-reconciling",
                          "kvstore-recovered"}
         emit("kvstore-outage", held_rows=int(held.shape[1]),
@@ -5125,6 +5217,1198 @@ def phase_proxy(dev, state4) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# hostint: the host integrations over the agent on the card
+# ---------------------------------------------------------------------------
+
+HOSTINT_STATE = POLICY_STATE            # policy_state(): the rules-to-verdicts
+HOSTINT_PROPAGATION = POLICY_PROPAGATION  # state, and policy-propagation's
+HOSTINT_NS = "prod"
+HOSTINT_NODES = 256
+HOSTINT_SERVICES = 1000
+HOSTINT_BACKENDS = 4
+HOSTINT_TOSERVICES = 8                  # CNPs whose egress names a service
+HOSTINT_BATCH = 1 << 20
+HOSTINT_VIP_ROWS = 4096                 # rows of the batch sent to service VIPs
+HOSTINT_RELIST_ROWS = 1 << 16
+HOSTINT_CHANGES = 10                    # CNP upserts, and as many deletes
+HOSTINT_PROBED = 32                     # nodes whose v6 address an engine serves
+HOSTINT_PACK_CT = 1 << 20
+HOSTINT_WAIT_S = 300.0
+HOSTINT_CT_SLOTS = POLICY_CT_SLOTS
+HOSTINT_NOW_AHEAD_S = 900
+HOSTINT_LOCAL = ("192.168.100.1", "fd00:10::1")   # this node's addresses
+HOSTINT_NEW_IP = "10.131.0.2"                     # the CNI leg's pod
+# a pod's container as kubelet labels it (the runtime watchers' sinks
+# prefix these k8s:)
+HOSTINT_CONTAINER_LABELS = {"app": "web",
+                            "io.kubernetes.pod.namespace": "prod"}
+
+
+def hostint_cid(name: str) -> str:
+    """A 64-hex container id, as a runtime hands CNI one."""
+    import hashlib
+    return hashlib.sha256(name.encode()).hexdigest()
+
+
+def np_of_rule(rule: dict, name: str):
+    """``rule`` as a Kubernetes NetworkPolicy, or None where a
+    NetworkPolicy cannot say it (an L7 rule, ``fromRequires``)."""
+    def sel(s):
+        return {"matchLabels": {k.split(":", 1)[-1]: v
+                                for k, v in s["matchLabels"].items()}}
+    spec = {"podSelector": sel(rule["endpointSelector"])}
+    for key, peer_sel, peer_cidr, side in (
+            ("ingress", "fromEndpoints", "fromCIDR", "from"),
+            ("egress", "toEndpoints", "toCIDR", "to")):
+        for r in rule.get(key, []):
+            if set(r) - {peer_sel, peer_cidr, "toPorts"}:
+                return None
+            peers = [{"podSelector": sel(s)} for s in r.get(peer_sel, [])] + \
+                [{"ipBlock": {"cidr": c}} for c in r.get(peer_cidr, [])]
+            ports = []
+            for pr in r.get("toPorts", []):
+                if pr.get("rules"):
+                    return None
+                ports += [{"port": int(p["port"]), "protocol": p["protocol"]}
+                          for p in pr["ports"]]
+            item = {}
+            if peers:
+                item[side] = peers
+            if ports:
+                item["ports"] = ports
+            spec.setdefault(key, []).append(item)
+    return {"apiVersion": "networking.k8s.io/v1", "kind": "NetworkPolicy",
+            "metadata": {"name": name, "namespace": HOSTINT_NS},
+            "spec": spec}
+
+
+def hostint_objects(state, seed: int = 31) -> dict:
+    """``state`` as Kubernetes objects: its rules as CNPs, every other
+    one NetworkPolicy can say as a NetworkPolicy; its endpoints and
+    peers as pods (the endpoints on this node); ``HOSTINT_NODES`` nodes
+    with pod CIDRs and a v4 and a v6 InternalIP; ``HOSTINT_SERVICES``
+    ClusterIP services of ``HOSTINT_BACKENDS`` pod backends each with
+    their Endpoints; ``HOSTINT_TOSERVICES`` CNPs whose egress names a
+    service."""
+    rng = np.random.default_rng(seed)
+    ns = HOSTINT_NS
+    cnps, nps = [], []
+    for i, rule in enumerate(json.loads(state.rules_json)):
+        as_np = np_of_rule(rule, f"np-{i}") if i % 2 else None
+        if as_np is not None:
+            nps.append(as_np)
+        else:
+            cnps.append({"apiVersion": "cilium.io/v2",
+                         "kind": "CiliumNetworkPolicy",
+                         "metadata": {"name": f"cnp-{i}", "namespace": ns},
+                         "spec": rule})
+    nodes = [{"metadata": {"name": f"node-{k}"},
+              "spec": {"podCIDR": f"10.144.{k}.0/24"},
+              "status": {"addresses": [
+                  {"type": "InternalIP",
+                   "address": f"192.168.{k // 250}.{k % 250 + 2}"},
+                  {"type": "InternalIP", "address": f"fd00:10::{k + 2:x}"}]}}
+             for k in range(HOSTINT_NODES)]
+    work = [(ip, labels) for _id, ip, labels in state.endpoints] + \
+        list(state.peers)
+    pods = []
+    for w, (ip, labels) in enumerate(work):
+        host = HOSTINT_LOCAL[0] if w < len(state.endpoints) else \
+            nodes[w % HOSTINT_NODES]["status"]["addresses"][0]["address"]
+        pods.append({"metadata": {"name": f"pod-{w}", "namespace": ns,
+                                  "labels": dict(l.split(":", 1)[1]
+                                                 .split("=", 1)
+                                                 for l in labels)},
+                     "spec": {}, "status": {"podIP": ip, "hostIP": host}})
+    pod_ips = [ip for ip, _l in work]
+    services, endpoints = [], []
+    for s in range(HOSTINT_SERVICES):
+        port, target = (80, 8080) if s % 2 == 0 else (443, 8443)
+        services.append({"metadata": {"name": f"svc-{s}", "namespace": ns},
+                         "spec": {"clusterIP":
+                                  f"10.96.{s // 250}.{s % 250 + 1}",
+                                  "ports": [{"port": port,
+                                             "targetPort": target,
+                                             "protocol": "TCP"}]}})
+        backends = rng.choice(len(pod_ips), HOSTINT_BACKENDS, replace=False)
+        endpoints.append({"metadata": {"name": f"svc-{s}", "namespace": ns},
+                          "subsets": [{"addresses": [
+                              {"ip": pod_ips[b]} for b in backends],
+                              "ports": [{"port": target}]}]})
+    for k in range(HOSTINT_TOSERVICES):
+        cnps.append({"apiVersion": "cilium.io/v2",
+                     "kind": "CiliumNetworkPolicy",
+                     "metadata": {"name": f"tosvc-{k}", "namespace": ns},
+                     "spec": {"endpointSelector": {"matchLabels": {
+                         "k8s:app": POLICY_APPS[k % len(POLICY_APPS)]}},
+                         "egress": [{"toServices": [{"k8sService": {
+                             "serviceName": f"svc-{k}", "namespace": ns}}]}],
+                         "labels": [f"k8s:rule=s{k}"]}})
+    return {"cnps": cnps, "nps": nps, "pods": pods, "nodes": nodes,
+            "services": services, "endpoints": endpoints,
+            "namespaces": [{"metadata": {"name": ns,
+                                         "labels": {"env": "production"}}}]}
+
+
+def hostint_cni_config(labels) -> dict:
+    """The CNI ADD config of a pod with ``labels`` (``k8s:key=value``)."""
+    out = dict(l.split(":", 1)[1].split("=", 1) for l in labels)
+    out["io.kubernetes.pod.namespace"] = HOSTINT_NS
+    return out
+
+
+def hostint_feed_twin(b, url, objs, state) -> None:
+    """What the watcher gives the agent, given to the twin directly: the
+    pods' addresses as the watcher enters them, the nodes, the node's
+    pods through CNI ADD over the twin's REST API, then the rules parsed
+    by the port's ``parse_cnp`` / ``parse_network_policy`` with the
+    services' backends translated in, in one import, and the services by
+    ``service_upsert`` in the apiserver's order.  An operator's order,
+    not kubelet's: the import after the pods builds every endpoint with
+    every identity, the state agent A reaches only after its
+    ``trigger_policy_updates`` round (``k8s_sync``), so the parity check
+    also holds A's end state against a second order."""
+    for pod in objs["pods"]:
+        meta, st = pod["metadata"], pod["status"]
+        b.ipcache.upsert(st["podIP"], RESERVED_UNMANAGED, "k8s",
+                         host_ip=st["hostIP"],
+                         metadata=f"pod:{meta['namespace']}/{meta['name']}")
+    for node in objs["nodes"]:
+        b.node_manager.node_updated(Node(
+            name=node["metadata"]["name"], cluster=b.config.cluster_name,
+            addresses=[NodeAddress(a["type"], a["address"])
+                       for a in node["status"]["addresses"]],
+            ipv4_alloc_cidr=node["spec"]["podCIDR"]))
+    hostint_cni_pods(url, state)
+    backends = {e["metadata"]["name"]: k8s_translate.endpoints_to_ips(e)
+                for e in objs["endpoints"]}
+    rules = [r for o in objs["cnps"] for r in k8s_parse_cnp(o)] + \
+        [r for o in objs["nps"] for r in k8s_parse_network_policy(o)]
+    for name, ips in backends.items():
+        k8s_translate.translate_to_services(rules, name, HOSTINT_NS, ips)
+    b.policy_add(rules)
+    for svc in objs["services"]:
+        p = svc["spec"]["ports"][0]
+        b.service_upsert(svc["spec"]["clusterIP"], p["port"],
+                         [(ip, p["targetPort"])
+                          for ip in backends[svc["metadata"]["name"]]])
+
+
+def vip_rows(packed, objs, slot_of, seed: int = 33) -> dict:
+    """The last ``HOSTINT_VIP_ROWS`` rows of ``packed`` made egress TCP
+    SYNs from the local endpoints to service VIPs; {row: the service's
+    backend addresses (int32 bits)}."""
+    rng = np.random.default_rng(seed)
+    col = {f: i for i, f in enumerate(PACKED_FIELDS)}
+    backends = {e["metadata"]["name"]: k8s_translate.endpoints_to_ips(e)
+                for e in objs["endpoints"]}
+    rows = np.arange(packed.shape[1] - HOSTINT_VIP_ROWS, packed.shape[1])
+    picks = rng.integers(0, len(objs["services"]), len(rows))
+    u32 = lambda ip: np.uint32(int(ipaddress.IPv4Address(ip))).view(  # noqa
+        np.int32)
+    want = {}
+    for r, s in zip(rows.tolist(), picks.tolist()):
+        svc = objs["services"][s]
+        slot = int(rng.integers(0, len(slot_of)))
+        packed[col["endpoint"], r] = slot_of[slot][0]
+        packed[col["saddr"], r] = u32(slot_of[slot][1])
+        packed[col["daddr"], r] = u32(svc["spec"]["clusterIP"])
+        packed[col["dport"], r] = svc["spec"]["ports"][0]["port"]
+        packed[col["proto"], r] = 6
+        packed[col["direction"], r] = 1
+        packed[col["tcp_flags"], r] = conntrack.TCP_SYN
+        want[r] = {int(u32(ip)) for ip in backends[svc["metadata"]["name"]]}
+    return want
+
+
+def retarget(packed, slot_map) -> np.ndarray:
+    """``packed`` with endpoint i's rows on table slot ``slot_map[i]``."""
+    out = packed.copy()
+    row = PACKED_FIELDS.index("endpoint")
+    out[row] = np.asarray(slot_map, np.int32)[packed[row]]
+    return out
+
+
+def hostint_settled(d, timeout: float = HOSTINT_WAIT_S) -> bool:
+    """``agent_settled`` and ``Daemon.wait_for_regenerations`` (an
+    identity change regenerates without a new revision)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if agent_settled(d, max(1.0, deadline - time.monotonic())) and \
+                d.wait_for_regenerations(
+                    max(1.0, deadline - time.monotonic())) and \
+                agent_settled(d, 1.0):
+            return True
+    return False
+
+
+class MiniDockerd:
+    """A dockerd on a unix socket for the runtime watcher: the container
+    list, inspect, and a ``/events`` stream of start and die events."""
+
+    def __init__(self, path: str):
+        import http.server
+
+        outer = self
+        self.path = path
+        self.cond = threading.Condition()
+        self.containers, self.events = {}, []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *_a):
+                pass
+
+            def address_string(self):
+                return "unix"
+
+            def _json(self, code, obj):
+                data = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):  # noqa: N802 — http.server's name
+                if self.path.startswith("/events"):
+                    self.send_response(200)
+                    self.send_header("Transfer-Encoding", "chunked")
+                    self.end_headers()
+                    with outer.cond:
+                        cursor = len(outer.events)
+                    try:
+                        while not outer.closed:
+                            with outer.cond:
+                                outer.cond.wait_for(
+                                    lambda: len(outer.events) > cursor or
+                                    outer.closed, timeout=0.5)
+                                batch = outer.events[cursor:]
+                                cursor = len(outer.events)
+                            for ev in batch:
+                                data = (json.dumps(ev) + "\n").encode()
+                                self.wfile.write(b"%x\r\n" % len(data) +
+                                                 data + b"\r\n")
+                                self.wfile.flush()
+                    except OSError:
+                        pass
+                    self.close_connection = True
+                    return
+                with outer.cond:
+                    containers = dict(outer.containers)
+                if self.path.startswith("/containers/json"):
+                    self._json(200, [{"Id": cid, "Names": [f"/{c['name']}"],
+                                      "Labels": c["labels"]}
+                                     for cid, c in containers.items()])
+                    return
+                c = containers.get(self.path.split("/")[2])
+                if c is None:
+                    self._json(404, {"message": "no such container"})
+                else:
+                    self._json(200, {"Id": self.path.split("/")[2],
+                                     "Name": f"/{c['name']}",
+                                     "Config": {"Labels": c["labels"]}})
+
+        class Server(socketserver.ThreadingUnixStreamServer):
+            daemon_threads = True
+
+        self.closed = False
+        self._srv = Server(path, Handler)
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        daemon=True, name="mini-dockerd")
+        self._thread.start()
+
+    def start(self, cid: str, name: str, labels: dict) -> None:
+        with self.cond:
+            self.containers[cid] = {"name": name, "labels": labels}
+            self.events.append({"Type": "container", "Action": "start",
+                                "Actor": {"ID": cid, "Attributes": labels}})
+            self.cond.notify_all()
+
+    def die(self, cid: str) -> None:
+        with self.cond:
+            self.containers.pop(cid, None)
+            self.events.append({"Type": "container", "Action": "die",
+                                "Actor": {"ID": cid, "Attributes": {}}})
+            self.cond.notify_all()
+
+    def shutdown(self) -> None:
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=5)
+        with contextlib.suppress(OSError):
+            os.unlink(self.path)
+
+
+def hostint_slots(d, state) -> list:
+    """[(table slot, IPv4)] of the node's pods, in ``state``'s order."""
+    return [(d.endpoints.lookup(cni_mod._endpoint_id_for(
+        hostint_cid(f"pod-{ep_id}"))).table_slot, ip)
+        for ep_id, ip, _l in state.endpoints]
+
+
+def hostint_batch(state, remotes, objs, slot_of, rows: int):
+    """(packed [10, rows], {VIP row: its backends}): ``policy_packets``
+    on the agent's slots, the last ``HOSTINT_VIP_ROWS`` to service
+    VIPs."""
+    packed, _ = policy_packets(state, remotes, rows)
+    packed = retarget(packed, [slot for slot, _ip in slot_of])
+    return packed, vip_rows(packed, objs, slot_of)
+
+
+def identity_keys(d) -> dict:
+    """{label set's sha256: identity} of ``d``'s allocator."""
+    return {i.labels.sha256_sum(): i.id
+            for i in d.identity_allocator.snapshot_identities()}
+
+
+def rename_by_keys(a, keys: dict) -> dict:
+    """{identity on ``a``: the one ``keys`` gives its labels}."""
+    return {i.id: keys[i.labels.sha256_sum()]
+            for i in a.identity_allocator.snapshot_identities()
+            if i.labels.sha256_sum() in keys}
+
+
+def hostint_twin(state, objs, now: int, ct_slots: int, rows: int) -> dict:
+    """The twin B (a worker process, on the CPU, so its builds overlap
+    agent A's): ``hostint_feed_twin``, ``rows`` rows at ``now`` from an
+    empty conntrack table and zeroed counters, then the front ends
+    (``front_ends``).  Its outputs and buffers, redirects, map states,
+    identities by labels and slots."""
+    AGENT_STATE_ROOT.mkdir(parents=True, exist_ok=True)
+    sdir = tempfile.mkdtemp(prefix="hostint-twin-", dir=AGENT_STATE_ROOT)
+    b = srv = None
+    try:
+        b, srv, _ = start_agent(torch.device("cpu"), sdir, ct_slots)
+        t0 = time.perf_counter()
+        hostint_feed_twin(b, srv.base_url, objs, state)
+        if not hostint_settled(b):
+            raise RuntimeError("the twin did not settle")
+        twin_s = time.perf_counter() - t0
+        slot_of = hostint_slots(b, state)
+        remotes = policy_remotes(state)
+        packed, _vips = hostint_batch(state, remotes, objs, slot_of, rows)
+        b.datapath.counters.packets.zero_()
+        b.datapath.counters.bytes.zero_()
+        outs = policy_outputs(b, b.datapath.process_packed(
+            torch.as_tensor(packed), now=now))
+        return {"twin_s": twin_s, "slot_of": slot_of, "outputs": outs,
+                "redirects": {x.id: x.proxy_port
+                              for x in b.proxy.redirects()},
+                "states": policy_map_states(b),
+                "identities": identity_keys(b),
+                "fronts": front_ends(torch.device("cpu"), b, srv.base_url,
+                                     state, remotes, now)}
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        if b is not None:
+            b.shutdown()
+        shutil.rmtree(sdir, ignore_errors=True)
+
+
+def k8s_sync(a, url, fake, objs, state) -> dict:
+    """The watcher and its transport on agent ``a``, as a node starts:
+    the apiserver holds every object but the Services, which are
+    created once the first sync is in (the watcher programs a service's
+    backends only on its Service event, as the reference's does); then
+    the node's pods arrive one after another through CNI ADD, as kubelet
+    runs them once the agent has synced (each rule a CNP makes is one
+    policy import, and with endpoints present every import waits for
+    their regeneration, O(rules^2) at 1,000 rules).  The local identity
+    allocator regenerates nothing when a later pod's identity appears
+    (the reference's ``_on_identity_change`` runs for the kvstore
+    allocators only, ROADMAP §3), so an endpoint built before it misses
+    it: after the pods, one ``trigger_policy_updates`` round rebuilds
+    every endpoint with every identity.  Reported: seconds from
+    ``start()`` to every endpoint ready with the services, the tunnel
+    map and the ipcache on the card, the round's seconds, and the
+    map-state entries it changed (what the pods' first builds had
+    missed)."""
+    watcher = K8sWatcher(a)
+    t0 = time.perf_counter()
+    transport = K8sTransport(watcher, fake.base_url).start()
+    if not transport.wait_synced(HOSTINT_WAIT_S) or \
+            not watcher.wait_idle(HOSTINT_WAIT_S):
+        raise AssertionError("hostint: the first sync did not finish")
+    synced_s = time.perf_counter() - t0
+    for svc in objs["services"]:
+        fake.upsert("services", svc)
+    wait_until(lambda: watcher.events_by_kind.get("service", 0) >=
+               len(objs["services"]), "the Service events",
+               HOSTINT_WAIT_S)
+    if not watcher.wait_idle(HOSTINT_WAIT_S):
+        raise AssertionError("hostint: the Service events did not apply")
+    services_s = time.perf_counter() - t0 - synced_s
+    t_pods = time.perf_counter()
+    hostint_cni_pods(url, state)
+    if not hostint_settled(a):
+        raise AssertionError("hostint: the agent did not settle")
+    pods_s = time.perf_counter() - t_pods
+    before = policy_map_states(a)
+    t_round = time.perf_counter()
+    a.trigger_policy_updates("identity-change")
+    if not hostint_settled(a):
+        raise AssertionError("hostint: the identity round did not settle")
+    round_s = time.perf_counter() - t_round
+    after = policy_map_states(a)
+    stale = sum(len(set(before.get(k, {}).items()) ^
+                    set(after.get(k, {}).items()))
+                for k in set(before) | set(after))
+    return {"watcher": watcher, "transport": transport,
+            "first_sync_s": synced_s, "services_s": services_s,
+            "pods_s": pods_s, "identity_round_s": round_s,
+            "stale_entries_before_round": stale,
+            "sync_s": time.perf_counter() - t0}
+
+
+def hostint_cni_pods(url, state) -> None:
+    """The node's pods through CNI ADD against the agent at ``url``."""
+    for ep_id, ip, labels in state.endpoints:
+        cni_mod.cni_add(Client(url), hostint_cid(f"pod-{ep_id}"),
+                        config={"ip": ip,
+                                "labels": hostint_cni_config(labels)})
+
+
+def hostint_card_entries(a, objs, eps) -> dict:
+    """What the card's tables hold of the apiserver's objects: the pod
+    CIDRs in the tunnel LPM (to their nodes), the pods in the ipcache LPM
+    (local ones to their endpoints' identities, remote ones unmanaged),
+    the services in the LB."""
+    cidrs = [n["spec"]["podCIDR"] for n in objs["nodes"]]
+    probe = [str(ipaddress.ip_network(c)[7]) for c in cidrs]
+    node_ips = np.array([np.uint32(int(ipaddress.IPv4Address(
+        n["status"]["addresses"][0]["address"]))).view(np.int32)
+        for n in objs["nodes"]])
+    tunnel_ok = int((card_lpm(a.datapath, "tunnel", probe) ==
+                     node_ips).sum())
+    pod_ips = [p["status"]["podIP"] for p in objs["pods"]]
+    want = np.array([eps[ip].security_identity if ip in eps
+                     else RESERVED_UNMANAGED for ip in pod_ips], np.int32)
+    ipcache_ok = int((card_lpm(a.datapath, "ipcache", pod_ips) ==
+                      want).sum())
+    lb = {(s.vip, s.port): len(s.backends) for s in a.datapath.lb.services()}
+    lb_ok = sum(lb.get((ipv4_to_u32(s["spec"]["clusterIP"]),
+                        s["spec"]["ports"][0]["port"])) == HOSTINT_BACKENDS
+                for s in objs["services"])
+    return {"tunnel_on_card": tunnel_ok, "pods_on_card": ipcache_ok,
+            "services_in_lb": lb_ok, "lb_entries": len(lb),
+            "nodes": len(cidrs), "pods": len(pod_ips),
+            "services": len(objs["services"])}
+
+
+def k8s_propagation(dev) -> dict:
+    """CNP upserts and deletes through a fake apiserver into an agent
+    on the card at ``policy_propagation``'s state (100 rules, so the
+    times compare with that leg's): each timed from
+    ``FakeAPIServer.upsert`` / ``delete`` to the batch in which the flow
+    the CNP opens or closes flips."""
+    base = policy_state(*HOSTINT_PROPAGATION)
+    scoped = lambda labels: tuple(labels) + (  # noqa: E731
+        f"k8s:io.kubernetes.pod.namespace={HOSTINT_NS}",)
+    state = dataclasses.replace(
+        base, endpoints=[(e, ip, scoped(lb)) for e, ip, lb in base.endpoints],
+        peers=[(ip, scoped(lb)) for ip, lb in base.peers])
+    fake = FakeAPIServer(history_limit=1 << 16).start()
+    sdir = tempfile.mkdtemp(prefix="hostint-prop-", dir=AGENT_STATE_ROOT)
+    d = srv = watcher = transport = None
+    samples = []
+    try:
+        d, srv, _ = start_agent(dev, sdir, HOSTINT_CT_SLOTS)
+        for i, rule in enumerate(json.loads(state.rules_json)):
+            fake.upsert("ciliumnetworkpolicies", {
+                "metadata": {"name": f"cnp-{i}", "namespace": HOSTINT_NS},
+                "spec": rule})
+        watcher = K8sWatcher(d)
+        transport = K8sTransport(watcher, fake.base_url).start()
+        if not transport.wait_synced(HOSTINT_WAIT_S) or \
+                not watcher.wait_idle(HOSTINT_WAIT_S):
+            raise AssertionError("hostint: the propagation CNPs did not "
+                                 "sync")
+        # the workloads after the policies, as in k8s_sync, and the
+        # same trigger_policy_updates round after them: the endpoints
+        # built before the later identities existed rebuild with them
+        for ep_id, ip, labels in state.endpoints:
+            d.endpoint_create(ep_id, ipv4=ip, labels=list(labels))
+        for ip, labels in state.peers:
+            ident, _ = d.identity_allocator.allocate(
+                Labels.from_model(list(labels)))
+            d.ipcache.upsert(ip, ident.id, SOURCE_KVSTORE)
+        d.trigger_policy_updates("identity-change")
+        if not hostint_settled(d):
+            raise AssertionError("hostint: the propagation agent did not "
+                                 "settle")
+        batch, _ = policy_packets(state, policy_remotes(state),
+                                  POLICY_PROBE_BATCH, seed=21)
+        rows = {f: PACKED_FIELDS.index(f) for f in PACKED_FIELDS}
+        sport = iter(range(1 << 30))
+        for k, (i, j, port, rule_dict) in enumerate(
+                policy_probes(d, state, HOSTINT_CHANGES)):
+            ep_id, ep_ip, _l = state.endpoints[i]
+            for f, v in (("endpoint", d.endpoints.lookup(ep_id).table_slot),
+                         ("dport", port), ("proto", 6), ("direction", 0),
+                         ("tcp_flags", conntrack.TCP_SYN),
+                         ("saddr", int(ipaddress.IPv4Address(
+                             state.peers[j][0]))),
+                         ("daddr", int(ipaddress.IPv4Address(ep_ip)))):
+                batch[rows[f], 0] = np.uint32(v).view(np.int32)
+
+            def serve() -> int:
+                batch[rows["sport"], 0] = 1024 + next(sport) % 64000
+                v, _e, _i, _n = d.datapath.process_packed(
+                    torch.as_tensor(batch, device=dev), now=POLICY_NOW)
+                return int(v[0])
+
+            if serve() >= 0:
+                raise AssertionError(f"hostint: probe {k} is allowed before "
+                                     "its CNP")
+            name = f"probe-{k}"
+            for change in ("add", "delete"):
+                t0 = time.perf_counter()
+                if change == "add":
+                    fake.upsert("ciliumnetworkpolicies", {
+                        "metadata": {"name": name, "namespace": HOSTINT_NS},
+                        "spec": rule_dict})
+                else:
+                    fake.delete("ciliumnetworkpolicies", HOSTINT_NS, name)
+                batches = 0
+                while True:
+                    batches += 1
+                    if (serve() >= 0) == (change == "add"):
+                        flip = time.perf_counter() - t0
+                        break
+                    if time.perf_counter() - t0 > HOSTINT_WAIT_S:
+                        raise AssertionError(
+                            f"hostint: probe {k}'s {change} did not reach "
+                            "the card")
+                    time.sleep(0.001)
+                if not watcher.wait_idle(HOSTINT_WAIT_S) or \
+                        not hostint_settled(d):
+                    raise AssertionError("hostint: propagation agent did "
+                                         "not settle")
+                samples.append({"change": change, "flip_s": flip,
+                                "batches": batches})
+        status = watcher.get_cnp_status(HOSTINT_NS, "cnp-0")
+    finally:
+        if transport is not None:
+            transport.stop()
+        if watcher is not None:
+            watcher.stop()
+        if srv is not None:
+            srv.shutdown()
+        if d is not None:
+            d.shutdown()
+        fake.shutdown()
+        shutil.rmtree(sdir, ignore_errors=True)
+
+    def pct(which):
+        xs = [s["flip_s"] for s in samples if s["change"] in which]
+        return {"p50": float(np.percentile(xs, 50)),
+                "p99": float(np.percentile(xs, 99)), "samples": len(xs)}
+
+    return {"state": dict(zip(("rules", "endpoints", "peers", "cidrs"),
+                              HOSTINT_PROPAGATION)),
+            "flip_s": pct(("add", "delete")), "add_flip_s": pct(("add",)),
+            "delete_flip_s": pct(("delete",)),
+            "cnp_status_enforcing": all(s.get("enforcing")
+                                        for s in status.values()),
+            "samples": samples}
+
+
+FRONT_ENDS = ("cni", "libnetwork", "workload", "docker")
+
+
+def k8s_relist(a, fake, sync, state, remotes, slot_of, now) -> dict:
+    """``compact()`` and ``disconnect_watchers()`` under agent ``a``'s
+    transport: the reflectors behind the compaction relist, the
+    resourceVersion dedup skips what they re-deliver, and rows keep their
+    verdicts from the same CT state."""
+    watcher, reflectors = sync["watcher"], sync["transport"].reflectors
+    held, _ = policy_packets(state, remotes, HOSTINT_RELIST_ROWS, seed=22)
+    held = torch.as_tensor(retarget(held, [s for s, _ip in slot_of]),
+                           device=a.datapath.device)
+    snap = a.datapath.snapshot_ct()
+    before = [t.cpu().numpy() for t in
+              a.datapath.process_packed(held, now=now)[:3]]
+    # a watch from the newest version is not compacted away: a marker
+    # namespace gives that version to the namespaces reflector alone, so
+    # every other reflector's version falls behind the compaction
+    seen_ns = watcher.events_by_kind.get("namespace", 0)
+    fake.upsert("namespaces", {"metadata": {"name": "relist-marker"}})
+    wait_until(lambda: watcher.events_by_kind.get("namespace", 0) >
+               seen_ns, "the marker namespace", HOSTINT_WAIT_S)
+    if not watcher.wait_idle(HOSTINT_WAIT_S):
+        raise AssertionError("hostint: the marker did not apply")
+    applied = watcher.events_processed
+    behind = [r for r in reflectors if r.kind != "namespace"]
+    marker = [r for r in reflectors if r.kind == "namespace"][0]
+    relists = [r.relists for r in behind]
+    # a reflector counts a relist before it feeds the listed objects and
+    # swaps in its new ``_known`` after: the swap says it has fed them all
+    known = [r._known for r in behind]
+    rewatches = marker.rewatches
+    skipped = [0]
+    enqueue = watcher.enqueue_event
+
+    def counting(kind, action, obj, retries=0):
+        fresh = enqueue(kind, action, obj, retries)
+        skipped[0] += not fresh
+        return fresh
+
+    watcher.enqueue_event = counting
+    try:
+        t0 = time.perf_counter()
+        fake.compact()
+        fake.disconnect_watchers()
+        wait_until(lambda: all(r.relists > n and r._known is not k
+                               for r, n, k in zip(behind, relists, known))
+                   and marker.rewatches > rewatches,
+                   "the relists", HOSTINT_WAIT_S)
+        if not watcher.wait_idle(HOSTINT_WAIT_S) or not hostint_settled(a):
+            raise AssertionError("hostint: the relist did not settle")
+        relist_s = time.perf_counter() - t0
+    finally:
+        watcher.enqueue_event = enqueue
+    a.datapath.restore_ct_snapshots(*snap)
+    after = [t.cpu().numpy() for t in
+             a.datapath.process_packed(held, now=now)[:3]]
+    return {"rows": int(held.shape[1]),
+            "mismatches": {k: int((x != y).sum()) for k, x, y in
+                           zip(("verdict", "event", "identity"), before,
+                               after)},
+            "objects_relisted": sum(len(r._known) for r in behind),
+            "dedup_skipped": skipped[0],
+            "events_applied": watcher.events_processed - applied,
+            "relists": {r.kind: r.relists for r in reflectors},
+            "rewatches": {r.kind: r.rewatches for r in reflectors},
+            "relist_s": relist_s}
+
+
+def front_ends(dev, d, url, state, remotes, now, dockerd=None) -> dict:
+    """Endpoints made by the container front ends on agent ``d``: a CNI
+    ADD; a docker libnetwork RequestAddress / CreateEndpoint / Join
+    over the plugin's HTTP; a ``WorkloadWatcher`` start event; and a
+    container start, through a ``DockerEventWatcher`` following
+    ``dockerd`` where one is given, else as the start event that
+    watcher would hand its sink.  Each endpoint's rows, then CNI DEL,
+    Leave, the stop and die events, and the rows again; both passes
+    from the CT state before the first, so every row is a new flow."""
+    client = Client(url)
+    cid, wl_cid = hostint_cid("cni-new"), hostint_cid("wl")
+    dcid = hostint_cid("docker-ev")
+    sink = runtime_watch.WorkloadWatcher(d, ipam=d.ipam, label_prefix="k8s")
+    watcher = ps = None
+    made, out = {}, {}
+    try:
+        if dockerd is not None:
+            # following the dockerd from the start: its first sync would
+            # stop a container the dockerd does not hold
+            watcher = runtime_watch.DockerEventWatcher(
+                runtime_watch.DockerClient(dockerd.path), sink,
+                backoff_base=0.02, backoff_max=0.2).start()
+            if not watcher.synced.wait(60):
+                raise AssertionError("hostint: the docker watcher did not "
+                                     "sync")
+        out["cni_result"] = cni_mod.cni_add(client, cid, config={
+            "ip": HOSTINT_NEW_IP,
+            "labels": hostint_cni_config(state.endpoints[0][2])})
+        made["cni"] = cni_mod._endpoint_id_for(cid)
+        ps = docker_plugin.PluginServer(docker_plugin.LibnetworkDriver(
+            client, wait_tries=3)).start()
+        code, addr = _plugin_post(ps.base_url, "IpamDriver.RequestAddress",
+                                  {"PoolID": "CiliumPoolv4"})
+        eid = "dockerep-" + hostint_cid("lib")[:24]
+        out["libnetwork_codes"] = [code] + [_plugin_post(
+            ps.base_url, method, body)[0] for method, body in (
+            ("NetworkDriver.CreateEndpoint", {
+                "NetworkID": "net-1", "EndpointID": eid,
+                "Interface": {"Address": addr["Address"]}}),
+            ("NetworkDriver.Join", {"EndpointID": eid}))]
+        made["libnetwork"] = docker_plugin.endpoint_id_for(eid)
+        made["workload"] = sink.on_start({
+            "id": wl_cid, "name": "wl-1",
+            "labels": HOSTINT_CONTAINER_LABELS})
+        if dockerd is not None:
+            dockerd.start(dcid, "ev-1", HOSTINT_CONTAINER_LABELS)
+            wait_until(lambda: sink.endpoint_of(dcid) is not None,
+                       "the docker start event", HOSTINT_WAIT_S)
+            made["docker"] = sink.endpoint_of(dcid)
+        else:
+            made["docker"] = sink.on_start({
+                "id": dcid, "name": "ev-1",
+                "labels": HOSTINT_CONTAINER_LABELS})
+        if not hostint_settled(d):
+            raise AssertionError("hostint: front-end endpoints not built")
+        slots = {}
+        for fe in FRONT_ENDS:
+            ep = d.endpoints.lookup(made[fe])
+            if ep is None:
+                raise AssertionError(f"hostint: no {fe} endpoint")
+            slots[fe] = (ep.table_slot, ep.ipv4)
+        snap = d.datapath.snapshot_ct()
+
+        def rows(first_seed: int) -> dict:
+            d.datapath.restore_ct_snapshots(*snap)
+            got = {}
+            for k, fe in enumerate(FRONT_ENDS):
+                pk = outage_packets(state, remotes, *slots[fe],
+                                    seed=first_seed + k)
+                got[fe] = [t.cpu().numpy() for t in d.datapath.process_packed(
+                    torch.as_tensor(pk, device=dev), now=now)[:3]]
+            return got
+
+        out.update(made=made, slots=slots, created=rows(40),
+                   redirects={x.id: x.proxy_port
+                              for x in d.proxy.redirects()},
+                   identities=identity_keys(d))
+        # tear down through the same front ends
+        if dockerd is not None:
+            dockerd.die(dcid)
+            wait_until(lambda: sink.endpoint_of(dcid) is None,
+                       "the docker die event", HOSTINT_WAIT_S)
+        else:
+            sink.on_stop(dcid)
+        cni_mod.cni_del(client, cid)
+        _plugin_post(ps.base_url, "NetworkDriver.Leave", {"EndpointID": eid})
+        _plugin_post(ps.base_url, "IpamDriver.ReleaseAddress",
+                     {"Address": addr["Address"].split("/")[0]})
+        sink.on_stop(wl_cid)
+        if not hostint_settled(d):
+            raise AssertionError("hostint: deletes did not settle")
+        out["deleted"] = rows(60)
+        out["left"] = [fe for fe in FRONT_ENDS
+                       if d.endpoints.lookup(made[fe]) is not None]
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        if ps is not None:
+            ps.shutdown()
+    return out
+
+
+def front_end_gap(got: dict, twin: dict) -> dict:
+    """``front_ends`` of agent A against the twin's: ids and slots, and
+    for each pass and front end the rows A allowed and the elements in
+    which verdict, event and identity differ (the twin's proxy ports
+    renamed by redirect id, A's identities by labels)."""
+    ports = np.arange(PROXY_PORT_MAX + 1, dtype=np.int32)
+    for rid, port in twin["redirects"].items():
+        ports[port] = got["redirects"].get(rid, port)
+    rename = {i: twin["identities"][k] for k, i in got["identities"].items()
+              if k in twin["identities"]}
+    out = {"ids_and_slots_equal": got["made"] == twin["made"] and
+           got["slots"] == twin["slots"],
+           "endpoints_left": {"a": got["left"], "b": twin["left"]},
+           "cni_result": got["cni_result"],
+           "libnetwork_codes": got["libnetwork_codes"]}
+    for stage in ("created", "deleted"):
+        out[stage] = {}
+        for fe in FRONT_ENDS:
+            (va, ea, ia), (vb, eb, ib) = got[stage][fe], twin[stage][fe]
+            vb = np.where(vb > 0, ports[np.clip(vb, 0, PROXY_PORT_MAX)], vb)
+            out[stage][fe] = {
+                "allowed": int((va >= 0).sum()), "rows": int(va.size),
+                "mismatches": int((va != vb).sum() + (ea != eb).sum() +
+                                  (rename_ids(ia, rename) != ib).sum())}
+    return out
+
+
+def _plugin_post(base: str, method: str, body=None):
+    """(HTTP status, decoded JSON) of one libnetwork call."""
+    req = urllib.request.Request(f"{base}/{method}", method="POST",
+                                 data=json.dumps(body or {}).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def hostint_health(dev, a) -> dict:
+    """``HealthProber`` over the agent's nodes, ICMPv6 through the card:
+    ``HOSTINT_PROBED`` nodes and this one get an engine on the card
+    serving their v6 address (the agent's own engine serves this
+    node's), the rest none; then TCP probes against a responder that
+    then shuts down."""
+    nodes = [(n.full_name, n.get_node_ip(ipv6=True))
+             for n in a.node_manager.nodes()]
+    local = (f"{a.config.cluster_name}/{a.node_name}", HOSTINT_LOCAL[1])
+    a.datapath.set_router_ip6(HOSTINT_LOCAL[1])
+    engines = {HOSTINT_LOCAL[1]: a.datapath}
+    t0 = time.perf_counter()
+    for _name, ip in nodes[:HOSTINT_PROBED]:
+        e = engine.Datapath(ct_slots=1 << 10, device=dev)
+        e.telemetry_enabled = False
+        e.load_policy([PolicyMapState()], revision=1)
+        e.set_router_ip6(ip)
+        engines[ip] = e
+    engines_s = time.perf_counter() - t0
+    probe = health.make_icmp6_probe(engines, "fd00:10::ffff")
+    prober = health.HealthProber(lambda: nodes + [local], probe_fn=probe,
+                                 interval=3600)
+    try:
+        t0 = time.perf_counter()
+        prober.probe_once()
+        sweep_s = time.perf_counter() - t0
+        st = prober.status()
+    finally:
+        prober.shutdown()
+    reachable = sorted(n for n, s in st.items() if s["healthy"])
+    want = sorted([n for n, _ip in nodes[:HOSTINT_PROBED]] + [local[0]])
+    lat = [s["latency-seconds"]["icmp"] * 1e3 for n, s in st.items()
+           if s["healthy"]]
+    responder = health.HealthResponder().start()
+    tcp = health.HealthProber(lambda: [("tcp/self", "127.0.0.1")],
+                              probe_fn=health.make_tcp_probe(
+                                  lambda _ip: responder.port, timeout=2.0),
+                              interval=3600)
+    try:
+        tcp.probe_once()
+        up = tcp.status()["tcp/self"]["healthy"]
+        responder.shutdown()
+        tcp.probe_once()
+        down = tcp.status()["tcp/self"]["healthy"]
+    finally:
+        tcp.shutdown()
+    return {"nodes": len(nodes) + 1, "programmed": len(engines),
+            "reachable": len(reachable),
+            "reachable_are_programmed": reachable == want,
+            "unreachable": len(st) - len(reachable),
+            "icmp6_ms_per_probe": {"p50": float(np.median(lat)),
+                                   "max": float(np.max(lat)),
+                                   "samples": len(lat)},
+            "sweep_s": sweep_s, "engines_s": engines_s,
+            "tcp_up": up, "tcp_after_shutdown": down}
+
+
+def hostint_bugtool(a, url) -> dict:
+    """``collect_remote`` against the agent's REST API and ``collect``
+    in process: the archives' members, and the card named in
+    ``status.json``."""
+    import tarfile
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="bugtool-", dir=AGENT_STATE_ROOT)
+    try:
+        for how, path in (("remote", bugtool.collect_remote(
+                Client(url), os.path.join(tmp, "r.tgz"))),
+                          ("local", bugtool.collect(
+                              a, os.path.join(tmp, "l.tgz")))):
+            with tarfile.open(path) as tar:
+                names = sorted(os.path.basename(m.name)
+                               for m in tar.getmembers())
+                status = json.load(tar.extractfile(
+                    [m for m in tar.getmembers()
+                     if m.name.endswith("/status.json")][0]))
+            out[how] = {"members": names,
+                        "failed": [n for n in names if n.endswith(".failed")],
+                        "device_kind": status["features"]["device_kind"],
+                        "bytes": os.path.getsize(path)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def hostint_packing(dev, state4) -> dict:
+    """The packing manifest on the card: the full-width v4 and v6
+    serving tables packed; the views equal to the leaves; a v4 step on
+    the views against the step on the tables at 2**20 rows, each from
+    the same CT state; policy rows written by ``refresh_policy`` and by
+    ``make_policy_row_writer`` into the packed buffer."""
+    dp = engine.Datapath(ct_slots=HOSTINT_PACK_CT, device=dev)
+    dp.telemetry_enabled = False
+    state4.load(dp)
+    v6_of(state4).load(dp)
+    out = {}
+    for fam, tables in (("v4", dp._tables), ("v6", dp._tables6)):
+        m = packing.build_manifest(tables)
+        bufs = packing.pack_groups(tables, m)
+        views = packing.unpacker(m)(bufs)
+        leaves, got = dict(packing._walk(tables)), dict(packing._walk(views))
+        out[fam] = {"groups": [list(g) for g in m.groups],
+                    "leaves": m.leaf_count(),
+                    "bytes": int(sum(b.numel() * b.element_size()
+                                     for b in bufs)),
+                    "view_mismatches": sum(
+                        int((leaves[p] != got[p]).sum()) for p in leaves),
+                    "views_in_buffers": all(
+                        got[l.path].data_ptr() ==
+                        bufs[m.group_names().index(l.group)].data_ptr() +
+                        4 * l.offset for l in m.leaves if l.size)}
+        if fam == "v4":
+            m4, views4 = m, views
+    batch = torch.as_tensor(next(v4_serving_packets(state4, HOSTINT_BATCH,
+                                                    seed=41)), device=dev)
+    snap = dp.snapshot_ct()
+    counters = dp._counters.clone()
+    original = dp._tables
+    want = [t.cpu().numpy() for t in dp.process_packed(batch, now=V4_T0)[:3]]
+    # the discard slot N+1 takes every dropped write in no set order:
+    # the real slots and the sentinel are compared
+    want_ct = dp.ct.state.cpu().numpy()
+    dp.restore_ct_snapshots(*snap)
+    dp._counters.copy_(counters)
+    dp._tables = views4
+    try:
+        got = [t.cpu().numpy() for t in dp.process_packed(batch,
+                                                          now=V4_T0)[:3]]
+    finally:
+        dp._tables = original
+    out["step_on_views"] = {
+        "rows": int(batch.shape[1]),
+        "mismatches": {k: int((w != g).sum()) for k, w, g in
+                       zip(("verdict", "event", "identity"), want, got)},
+        "ct_mismatches": int((dp.ct.state.cpu().numpy() != want_ct)[
+            :, :dp.ct.slots + 1].sum()),
+        "allowed_share": float((want[0] >= 0).mean())}
+    del dp
+
+    # refresh_policy's row writes and the packed row writer
+    mgr = DeviceTableManager(initial_endpoints=len(state4.states),
+                             device=dev)
+    tm = engine.Datapath(ct_slots=1 << 10, device=dev)
+    for k, st in enumerate(state4.states):
+        mgr.attach(100 + k)
+        mgr.sync_endpoint(100 + k, st, revision=1)
+    tm.use_table_manager(mgr, ipcache_prefixes=state4.prefixes)
+    tm.refresh_policy(1)
+    m = packing.build_manifest(tm._tables)
+    bufs = packing.pack_groups(tm._tables, m)
+    writer, g = packing.make_policy_row_writer(m)
+    changed = [1, len(state4.states) - 1]
+    for k in changed:
+        # one entry fewer: a row write, never a growth
+        st = PolicyMapState(state4.states[k])
+        del st[next(iter(st))]
+        if mgr.sync_endpoint(100 + k, st, revision=2)["full_swap"]:
+            raise AssertionError("hostint: a smaller row grew the tables")
+    slots = [mgr.slot_of(100 + k) for k in changed]
+    rows = [r[slots] for r in mgr.host_mirror()]
+    before = tm.pack_stats()["row-writes"]
+    rebuilt = tm.refresh_policy(2)
+    writer(bufs[g], torch.as_tensor(np.array(slots), device=dev),
+           *(torch.as_tensor(r, device=dev) for r in rows))
+    views = packing.unpacker(m)(bufs)
+    out["row_writer"] = {
+        "rows": len(slots), "rebuilt": rebuilt,
+        "row_writes": tm.pack_stats()["row-writes"] - before,
+        "mismatches": sum(int((getattr(views.datapath, f) !=
+                               getattr(tm._tables.datapath, f)).sum())
+                          for f in ("key_id", "key_meta", "value"))}
+    return out
+
+
+# the module settings the worker legs read, handed over from the parent
+# (a spawned worker imports this module afresh)
+HOSTINT_WORKER_KNOBS = ("HOSTINT_PROPAGATION", "HOSTINT_CHANGES",
+                        "HOSTINT_CT_SLOTS", "HOSTINT_WAIT_S",
+                        "HOSTINT_PACK_CT", "HOSTINT_BATCH",
+                        "POLICY_PROBE_BATCH", "V4_STATE")
+
+
+def hostint_worker_legs(dev, knobs: dict) -> dict:
+    """The legs with tables of their own, in a worker process beside
+    ``k8s-sync`` (their seconds would otherwise add to the phase's):
+    ``k8s_propagation``, then ``hostint_packing`` on the v4 serving
+    state ``phase_v4`` serves, with the parent's ``knobs``.  Their
+    results, seconds, and the dense kernel's launches in the worker."""
+    globals().update(knobs)
+    dv.dense_verdict.launches = 0
+    t0 = time.perf_counter()
+    prop = k8s_propagation(dev)
+    prop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packed = hostint_packing(dev, v4_serving_state(**V4_STATE))
+    return {"propagation": prop, "propagation_s": prop_s,
+            "packing": packed, "packing_s": time.perf_counter() - t0,
+            "launches": dv.dense_verdict.launches}
+
+
+def phase_hostint(dev) -> int:
+    """The host integrations over the agent on the card; returns the
+    dense kernel's launches on the path (the agents serve on the hash
+    engine)."""
+    t_phase = time.perf_counter()
+    state = policy_state(*HOSTINT_STATE)
+    objs = hostint_objects(state)
+    remotes = policy_remotes(state)
+    # a batch time ahead of the wall clock: the agents' ct-gc controller
+    # (wall clock) keeps every entry the batches create
+    now = int(time.time()) + HOSTINT_NOW_AHEAD_S
+    AGENT_STATE_ROOT.mkdir(parents=True, exist_ok=True)
+    sdir = tempfile.mkdtemp(prefix="hostint-", dir=AGENT_STATE_ROOT)
+    fake = FakeAPIServer(history_limit=1 << 16).start()
+    a = srv_a = None
+    sync = {}
+    dv.dense_verdict.launches = 0
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        twin_job = pool.apply_async(hostint_twin, (
+            state, objs, now, HOSTINT_CT_SLOTS, HOSTINT_BATCH))
+        legs_job = pool.apply_async(hostint_worker_legs, (dev, {
+            k: globals()[k] for k in HOSTINT_WORKER_KNOBS}))
+        try:
+            a, srv_a, _ = start_agent(dev, sdir, HOSTINT_CT_SLOTS)
+            for kind, resource in (("namespaces", "namespaces"),
+                                   ("cnps", "ciliumnetworkpolicies"),
+                                   ("nps", "networkpolicies"),
+                                   ("pods", "pods"), ("nodes", "nodes"),
+                                   ("endpoints", "endpoints")):
+                for obj in objs[kind]:
+                    fake.upsert(resource, obj)
+
+            # ---- k8s-sync: the apiserver into A; the twin B, fed by
+            # hand on the CPU meanwhile; one batch through both ----
+            sync = k8s_sync(a, srv_a.base_url, fake, objs, state)
+            watcher = sync["watcher"]
+            eps = {e.ipv4: e for e in a.endpoints.endpoints()}
+            entries = hostint_card_entries(a, objs, eps)
+            slot_of = hostint_slots(a, state)
+            packed, vip_want = hostint_batch(state, remotes, objs, slot_of,
+                                             HOSTINT_BATCH)
+            t0 = time.perf_counter()
+            twin = twin_job.get(timeout=2 * HOSTINT_WAIT_S)
+            twin_wait_s = time.perf_counter() - t0
+            if twin["slot_of"] != slot_of:
+                raise AssertionError("hostint: the agents' slots differ")
+            a.datapath.counters.packets.zero_()
+            a.datapath.counters.bytes.zero_()
+            rename = rename_by_keys(a, twin["identities"])
+            got = policy_outputs(a, a.datapath.process_packed(
+                torch.as_tensor(packed, device=dev), now=now), rename=rename)
+            parity, ports_renamed = policy_twin_mismatches(
+                got, twin, {x.id: x.proxy_port for x in a.proxy.redirects()},
+                policy_map_states(a, rename))
+            vip_bad = sum(int(got["nat.daddr"][r]) not in want
+                          for r, want in vip_want.items())
+            emit("k8s-sync", **entries,
+                 rules=len(objs["cnps"]) + len(objs["nps"]),
+                 cnps=len(objs["cnps"]), network_policies=len(objs["nps"]),
+                 endpoints=len(state.endpoints),
+                 endpoints_ready=sum(e.state == "ready" and
+                                     e.policy_revision == a.repo.revision
+                                     for e in a.endpoints.endpoints()),
+                 first_sync_s=sync["first_sync_s"],
+                 services_s=sync["services_s"], pods_s=sync["pods_s"],
+                 identity_round_s=sync["identity_round_s"],
+                 stale_entries_before_round=sync[
+                     "stale_entries_before_round"],
+                 k8s_sync_s=sync["sync_s"],
+                 twin_s=twin["twin_s"], twin_wait_s=twin_wait_s,
+                 events=dict(watcher.events_by_kind),
+                 cnp_status_enforcing=sum(
+                     s.get("enforcing", False) for nodes in
+                     watcher.cnp_status.values() for s in nodes.values()),
+                 rows=int(packed.shape[1]), vs_twin=parity,
+                 ports_renamed=ports_renamed,
+                 identities_renamed=sum(k != v for k, v in rename.items()),
+                 vip_rows=len(vip_want), vip_rows_not_to_a_backend=vip_bad,
+                 allowed_share=float((got["verdict"] >= 0).mean()),
+                 name_power_limit=nvidia_smi("name,power.limit"))
+
+            # ---- k8s-relist: compaction and dropped streams ----
+            relist = k8s_relist(a, fake, sync, state, remotes, slot_of, now)
+            emit("k8s-relist", **relist)
+
+            # ---- cni-docker: the container front ends ----
+            t0 = time.perf_counter()
+            sock_dir = tempfile.mkdtemp(prefix="dk", dir=AGENT_STATE_ROOT)
+            # a unix socket path is capped at about 100 bytes
+            dockerd = MiniDockerd(os.path.relpath(
+                os.path.join(sock_dir, "d.sock")))
+            try:
+                fronts = front_end_gap(front_ends(
+                    dev, a, srv_a.base_url, state, remotes, now, dockerd),
+                    twin["fronts"])
+            finally:
+                dockerd.shutdown()
+                shutil.rmtree(sock_dir, ignore_errors=True)
+            emit("cni-docker", **fronts, seconds=time.perf_counter() - t0)
+
+            # ---- health: ICMPv6 through the card's v6 step, and TCP ----
+            t0 = time.perf_counter()
+            probes = hostint_health(dev, a)
+            emit("health", **probes, seconds=time.perf_counter() - t0,
+                 name_power_limit=nvidia_smi("name,power.limit"))
+
+            # ---- bugtool ----
+            t0 = time.perf_counter()
+            bug = hostint_bugtool(a, srv_a.base_url)
+            emit("bugtool", **bug, seconds=time.perf_counter() - t0)
+
+            # ---- k8s-propagation (policy_propagation's state behind
+            # its own apiserver) and packing, from the worker ----
+            t0 = time.perf_counter()
+            legs = legs_job.get(timeout=2 * HOSTINT_WAIT_S)
+            prop, packed_legs = legs["propagation"], legs["packing"]
+            emit("k8s-propagation", **prop, seconds=legs["propagation_s"],
+                 ran_beside="k8s-sync",
+                 name_power_limit=nvidia_smi("name,power.limit"))
+            emit("packing", **packed_legs, seconds=legs["packing_s"],
+                 worker_wait_s=time.perf_counter() - t0)
+        finally:
+            if sync:
+                sync["transport"].stop()
+                sync["watcher"].stop()
+            fake.shutdown()
+            if srv_a is not None:
+                srv_a.shutdown()
+            if a is not None:
+                a.shutdown()
+            shutil.rmtree(sdir, ignore_errors=True)
+
+    launches = dv.dense_verdict.launches + legs["launches"]
+    kind = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    counts = [sum(parity.values()), vip_bad,
+              entries["tunnel_on_card"] != entries["nodes"],
+              entries["pods_on_card"] != entries["pods"],
+              entries["services_in_lb"] != entries["services"],
+              sum(relist["mismatches"].values()),
+              relist["dedup_skipped"] != relist["objects_relisted"],
+              relist["events_applied"],
+              not fronts["ids_and_slots_equal"],
+              any(v["mismatches"] for v in fronts["created"].values()),
+              any(v["mismatches"] for v in fronts["deleted"].values()),
+              # the libnetwork endpoint carries no k8s label: no CNP or
+              # NetworkPolicy selects it and the agent denies its rows
+              any(fronts["created"][fe]["allowed"] == 0
+                  for fe in ("cni", "workload", "docker")),
+              any(v["allowed"] for v in fronts["deleted"].values()),
+              any(fronts["endpoints_left"].values()),
+              not probes["reachable_are_programmed"],
+              probes["unreachable"] != probes["nodes"] - probes["programmed"],
+              not probes["tcp_up"], probes["tcp_after_shutdown"],
+              any(v["failed"] for v in bug.values()),
+              any(v["device_kind"] != kind for v in bug.values()),
+              bug["remote"]["members"] != sorted(HOSTINT_REMOTE_MEMBERS),
+              packed_legs["v4"]["view_mismatches"],
+              packed_legs["v6"]["view_mismatches"],
+              not packed_legs["v4"]["views_in_buffers"],
+              sum(packed_legs["step_on_views"]["mismatches"].values()),
+              packed_legs["step_on_views"]["ct_mismatches"],
+              packed_legs["row_writer"]["mismatches"],
+              packed_legs["row_writer"]["rebuilt"],
+              packed_legs["row_writer"]["row_writes"] != 2,
+              not prop["cnp_status_enforcing"]]
+    if any(counts):
+        raise AssertionError(f"hostint: {counts}")
+    emit("hostint", seconds=time.perf_counter() - t_phase,
+         hand_kernel_launches={"dense_verdict": launches},
+         name_power_limit=nvidia_smi("name,power.limit"))
+    return launches
+
+
+# the members collect_remote archives (cilium_tpu_torch/bugtool.py)
+HOSTINT_REMOTE_MEMBERS = (
+    "status.json", "policy.json", "endpoints.json", "identities.json",
+    "services.json", "prefilter.json", "monitor-stats.json", "config.json",
+    "metrics.txt", "hubble-flows.json", "hubble-stats.json", "traces.json",
+    "pipeline.json", "flight-recorder.json", "provenance.json")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5187,6 +6471,7 @@ def main() -> int:
     kvstore_launches = phase_kvstore(dev)
     sharded_launches = phase_sharded(dev, state4)
     proxy_launches = phase_proxy(dev, state4)
+    hostint_launches = phase_hostint(dev)
 
     def at(res):
         return {"b": res["batch"], "n": res["entries"],
@@ -5226,6 +6511,7 @@ def main() -> int:
         "kvstore_path_launches": kvstore_launches,
         "sharded_path_launches": sharded_launches,
         "proxy_path_launches": proxy_launches,
+        "hostint_path_launches": hostint_launches,
         "north_star": {**at(main_n), "plain_ms": main_n["plain_ms"]},
         "allow_heavy": {"baseline": at(base["allow-heavy"]),
                         "north_star": at(north["allow-heavy"])}}]}),

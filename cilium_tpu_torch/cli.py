@@ -15,10 +15,12 @@ Run the agent itself with ``python -m cilium_tpu_torch.cli agent``
 A copy of ``cilium_tpu/cli.py`` over the port's agent.  ``agent`` takes
 ``--device`` (default ``cuda``; without a card it raises) and
 ``--dataplane-shards N`` (``DaemonConfig.dataplane_shards``: N shard
-engines, all on ``--device``).  The agent's
-``--k8s-api-server`` and ``--docker-socket``, and the ``cni``,
-``docker-plugin`` and ``bugtool`` commands, raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  A verdict service that fails to start stops the agent.
+engines, all on ``--device``); ``--k8s-api-server URL`` list/watches an
+apiserver into the agent (``k8s.client.K8sTransport`` over a
+``K8sWatcher``) and ``--docker-socket PATH`` follows dockerd's container
+events (``runtime_watch.DockerEventWatcher``), as the reference's agent
+does.  A verdict service that fails to start stops the agent (the
+reference runs on without it).
 """
 
 from __future__ import annotations
@@ -863,24 +865,36 @@ def cmd_cleanup(c: Client, args) -> int:
     return 0
 
 
-def cmd_not_ported(c: Client, args) -> int:
-    """The container front ends and the bug-report archive."""
-    from .daemon.daemon import ITEM_HOST_INTEGRATIONS, not_ported
-    raise not_ported(f"the {args.cmd!r} command", ITEM_HOST_INTEGRATIONS)
+def cmd_bugtool(c: Client, args) -> int:
+    from .bugtool import collect_remote
+    path = collect_remote(c, args.output or None)
+    print(f"Archive written: {path}")
+    return 0
+
+
+def cmd_cni(c: Client, args) -> int:
+    import os
+    from . import cni
+    os.environ.setdefault("CILIUM_TPU_API", c.base_url)
+    os.environ["CNI_COMMAND"] = args.cni_cmd.upper()
+    if args.container_id:
+        os.environ["CNI_CONTAINERID"] = args.container_id
+    return cni.main()
+
+
+def cmd_docker_plugin(c: Client, args) -> int:
+    from . import docker_plugin
+    return docker_plugin.main(["--api", c.base_url,
+                               "--listen-port", str(args.listen_port)])
 
 
 def cmd_agent(args) -> int:
     """Run the agent + API server in the foreground."""
     from .daemon import Daemon
-    from .daemon.daemon import ITEM_HOST_INTEGRATIONS, not_ported
     from .daemon.rest import APIServer
     from .kvstore.backend import close_client, setup_client
     from .utils.option import DaemonConfig
 
-    if args.k8s_api_server:
-        raise not_ported("--k8s-api-server", ITEM_HOST_INTEGRATIONS)
-    if args.docker_socket:
-        raise not_ported("--docker-socket", ITEM_HOST_INTEGRATIONS)
     cfg = DaemonConfig(cluster_name=args.cluster_name,
                        cluster_id=args.cluster_id,
                        state_dir=args.state_dir,
@@ -918,6 +932,31 @@ def cmd_agent(args) -> int:
                device=args.device)
     restored = d.restore_endpoints()
     server = APIServer(d, port=args.api_port).start()
+    docker_watcher = None
+    if getattr(args, "docker_socket", ""):
+        # real dockerd events client (pkg/workloads/docker.go analog)
+        from .runtime_watch import (DockerClient, DockerEventWatcher,
+                                    WorkloadWatcher)
+        docker_watcher = DockerEventWatcher(
+            DockerClient(args.docker_socket),
+            WorkloadWatcher(d, ipam=d.ipam)).start()
+    k8s_transport = k8s_watcher = None
+    if getattr(args, "k8s_api_server", ""):
+        # real list/watch informers against an apiserver
+        # (daemon/k8s_watcher.go EnableK8sWatcher analog)
+        from .k8s.client import K8sTransport
+        from .k8s.watcher import K8sWatcher
+        k8s_watcher = K8sWatcher(d)
+        k8s_transport = K8sTransport(k8s_watcher,
+                                     args.k8s_api_server).start()
+
+    def stop_integrations():
+        if docker_watcher is not None:
+            docker_watcher.stop()
+        if k8s_transport is not None:
+            k8s_transport.stop()
+            k8s_watcher.stop()
+
     vsvc = None
     if getattr(args, "verdict_port", 0):
         # the daemon->TPU verdict-service RPC hop: remote ingest
@@ -947,6 +986,7 @@ def cmd_agent(args) -> int:
             # a bad config, a failed native build or a port in use: the
             # agent stops rather than serve without the device lane the
             # flag asked for
+            stop_integrations()
             server.shutdown()
             d.shutdown()
             close_client()
@@ -958,6 +998,7 @@ def cmd_agent(args) -> int:
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
+        stop_integrations()
         if vsvc is not None:
             vsvc.shutdown()
         server.shutdown()
@@ -1221,8 +1262,16 @@ def build_parser() -> argparse.ArgumentParser:
     ms.add_argument("state_dir")
     ms.add_argument("--no-backup", action="store_true")
 
-    for name in ("bugtool", "cni", "docker-plugin"):
-        sub.add_parser(name, help="not ported yet")
+    bt = sub.add_parser("bugtool", help="archive agent state for a bug report")
+    bt.add_argument("-o", "--output", default="")
+
+    cn = sub.add_parser("cni", help="CNI plugin entry (ADD/DEL/VERSION)")
+    cn.add_argument("cni_cmd", choices=["add", "del", "version"])
+    cn.add_argument("--container-id", default="")
+
+    dp = sub.add_parser("docker-plugin",
+                        help="serve the docker libnetwork remote driver")
+    dp.add_argument("--listen-port", type=int, default=9235)
 
     sub.add_parser("debuginfo", help="aggregate agent state snapshot")
 
@@ -1291,8 +1340,8 @@ COMMANDS = {
     "hubble": cmd_hubble, "threat": cmd_threat, "top": cmd_top,
     "config": cmd_config, "metrics": cmd_metrics,
     "trace": cmd_trace, "events": cmd_events,
-    "bugtool": cmd_not_ported, "cni": cmd_not_ported,
-    "docker-plugin": cmd_not_ported,
+    "bugtool": cmd_bugtool, "cni": cmd_cni,
+    "docker-plugin": cmd_docker_plugin,
     "debuginfo": cmd_debuginfo, "kvstore": cmd_kvstore,
     "cleanup": cmd_cleanup,
     "migrate-state": cmd_migrate_state,

@@ -18,9 +18,11 @@ so a state directory either package wrote restores in the other.
 With a kvstore backend it replicates control state (identities,
 ipcache, nodes) through the kvstore as the reference does, behind the
 same outage guard, so port and JAX agents share one store.
-
-The branch into a module a later slice brings raises
-``NotImplementedError`` naming the ROADMAP item: the xDS server.
+``serve_xds`` serves its proxy state to out-of-process proxies, and the
+host integrations (``k8s``, ``cni``, ``docker_plugin``,
+``runtime_watch``, ``health``, ``bugtool``) drive it from outside
+through the same methods as the reference's; the agent refuses no path
+of the reference.
 """
 
 from __future__ import annotations
@@ -83,16 +85,6 @@ from ..compiler.lpm import ipv4_to_u32
 # /service/{id} API ids: v6 services offset into a disjoint range
 # (each family allocates rev-NAT indices independently)
 V6_SERVICE_ID_BASE = 1_000_000
-
-# the ROADMAP.md queue 1 items that bring what this slice refuses
-ITEM_HOST_INTEGRATIONS = "8.4 (k8s, cni, docker_plugin, bugtool, health)"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The refusal of a path a later slice ports."""
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item {item}")
-
 
 class Daemon:
     """One agent instance; every tensor it holds lives on ``device``
@@ -554,15 +546,23 @@ class Daemon:
                                         metadata=f"endpoint:{ep.id}")
                 rekeyed_ids.append(ep.id)
                 rekeyed += 1
-            # the actually-diverged endpoint set: re-keyed endpoints
-            # plus endpoints whose realized maps name a promoted ID
+            # the actually-diverged endpoint set: re-keyed endpoints,
+            # endpoints whose realized maps name a promoted ID, and
+            # endpoints with a build running: such a build may have
+            # taken its identity snapshot before the re-keying and
+            # realize a map naming a local ID after this scan (the
+            # reference misses it, and the map stays stale).  The
+            # running set is read before the maps, so a build that
+            # ends between the two reads is seen by the second.
             referencing = []
             if mapping:
+                building = self.endpoints.building()
                 for ep in self.endpoints.endpoints():
                     if ep.id in rekeyed_ids:
                         continue
                     state = PolicyMapState(ep.realized)
-                    if any(k.identity in mapping for k in state.keys()):
+                    if ep.id in building or \
+                            any(k.identity in mapping for k in state.keys()):
                         referencing.append(ep.id)
                 for eid in rekeyed_ids + referencing:
                     self.endpoints.queue_regeneration(eid)
@@ -2028,6 +2028,22 @@ class Daemon:
 
     def wait_for_quiesce(self, timeout: float = 30.0) -> bool:
         return self.endpoints.wait_for_quiesce(timeout)
+
+    def wait_for_regenerations(self, timeout: float = 30.0) -> bool:
+        """Block until no ``trigger_policy_updates`` run is pending or
+        running and no build is queued or running.  An identity change
+        regenerates without a new revision, so
+        ``wait_for_policy_revision`` alone does not see it."""
+        deadline = time.monotonic() + timeout
+        while True:
+            left = max(0.0, deadline - time.monotonic())
+            if self._regen_trigger.wait_idle(left) and \
+                    self.endpoints.wait_for_quiesce(
+                        max(0.0, deadline - time.monotonic())) and \
+                    self._regen_trigger.wait_idle(0):
+                return True
+            if time.monotonic() >= deadline:
+                return False
 
     def wait_for_policy_revision(self, revision: Optional[int] = None,
                                  timeout: float = 30.0) -> bool:

@@ -110,6 +110,11 @@ class EndpointManager:
                 n += 1
         return n
 
+    def building(self) -> set:
+        """The ids of the endpoints whose build is running now."""
+        with self._qlock:
+            return set(self._building)
+
     def wait_for_quiesce(self, timeout: float = 30.0) -> bool:
         """Block until no builds are queued or running (test barrier)."""
         with self._idle:

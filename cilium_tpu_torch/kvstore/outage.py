@@ -388,7 +388,14 @@ class OutageGuard(BackendOperations):
                     self._note_success()
                 except Exception:  # noqa: BLE001 — any failure counts
                     self._note_failure()
-            if self.journal.depth():
+            with self._mu:
+                # the probe can block for the backend's timeout, and the
+                # mode can leave ok meanwhile: what is journaled since
+                # then belongs to the reconcile (the reference drains it
+                # here on the stale reading, and the reconcile's report
+                # then counts none of it replayed)
+                still_ok = self._mode == MODE_OK
+            if still_ok and self.journal.depth():
                 # a transient blip journaled mutations without ever
                 # flipping the mode: drain them now
                 try:

@@ -17,8 +17,9 @@ under that name, by row.
 
 ``tests/test_torch_sharding_lint.py`` holds the registry complete: a new
 table leaf without a declared spec here is a test failure, not a silent
-default-to-replicated.  ``PACKED_GROUP_SPECS`` is kept as data: the
-port's engine does not pack its tables into group buffers.
+default-to-replicated.  ``PACKED_GROUP_SPECS`` declares the groups of
+``parallel/packing.py``'s manifest; the port's engine keeps its tables
+unpacked, so the packed buffers serve callers that want them.
 """
 
 from __future__ import annotations
@@ -158,8 +159,8 @@ ANALYTICS_STATE_SPECS: Dict[str, P] = {
 # the distribution of the CONCATENATED buffer over the mesh — ep-grouped
 # slices belong to one shard's column, replicated groups are copied per
 # shard, and the mutable state packs are shard-local like the leaves
-# they stack.  Kept as data: the port's steps take the tables unpacked
-# (queue 2 item 3 of ROADMAP.md ports packing.py).
+# they stack.  The port's steps take the tables unpacked;
+# parallel/packing.py builds these groups for callers that want them.
 # ---------------------------------------------------------------------------
 
 PACKED_GROUP_SPECS: Dict[str, P] = {

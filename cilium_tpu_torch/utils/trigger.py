@@ -1,6 +1,7 @@
 """Rate-limited trigger/debounce.
 
-A whole copy of ``cilium_tpu/utils/trigger.py``.
+A copy of ``cilium_tpu/utils/trigger.py``, with ``wait_idle`` added (a
+barrier for callers that must see a folded run finish).
 
 Reference: pkg/trigger/trigger.go — serializes calls to TriggerFunc,
 folding bursts of ``Trigger()`` calls into one invocation and enforcing
@@ -26,6 +27,8 @@ class Trigger:
         self.min_interval = min_interval
         self.metrics_observer = metrics_observer  # (latency, duration)
         self._lock = threading.Lock()
+        self._idle = threading.Condition(self._lock)
+        self._running = False
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._pending_reasons: List[str] = []
@@ -47,6 +50,13 @@ class Trigger:
             # inside the lock: a drain between append and set() would
             # otherwise leave a stale wake that runs trigger_func([])
             self._wake.set()
+
+    def wait_idle(self, timeout: float) -> bool:
+        """Block until no run is pending or running; False on timeout."""
+        with self._idle:
+            return self._idle.wait_for(
+                lambda: not self._pending_reasons and not self._running,
+                timeout=timeout)
 
     def shutdown(self) -> None:
         self._stop.set()
@@ -71,11 +81,16 @@ class Trigger:
                 first = self._first_pending
                 self._wake.clear()
                 self._last_run = time.time()
+                self._running = True
             latency = time.time() - first if first else 0.0
             t0 = time.perf_counter()
             try:
                 self.trigger_func(reasons)
             except Exception:
                 pass  # trigger funcs own their error handling
+            finally:
+                with self._idle:
+                    self._running = False
+                    self._idle.notify_all()
             if self.metrics_observer:
                 self.metrics_observer(latency, time.perf_counter() - t0)

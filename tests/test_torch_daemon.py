@@ -592,13 +592,15 @@ def test_old_state_dir_restores_in_both(tmp_path):
 # -------------------------------------------------------------- refusals
 
 def test_later_slices_are_refused_by_name(tmp_path):
-    """The agent refuses nothing of queue 1 item 8.3 any more: its xDS
-    server starts (once) and stops with the agent; the host
-    integrations (item 8.4) are still refused by name."""
+    """Its name is kept from when it checked the refusals of the
+    slices not yet ported; it now checks the opposite: the agent refuses
+    nothing, no refusal is left in the daemon, and its xDS server starts
+    (once) and stops with the agent.
+    The host integrations run (``test_torch_daemon_rest_cli.py``'s
+    ``test_agent_refuses_later_slices``)."""
     from cilium_tpu_torch.daemon import daemon as daemon_mod
-    assert not hasattr(daemon_mod, "ITEM_XDS")
-    assert "item 8.4" in str(daemon_mod.not_ported(
-        "the 'cni' command", daemon_mod.ITEM_HOST_INTEGRATIONS))
+    for name in ("ITEM_XDS", "ITEM_HOST_INTEGRATIONS", "not_ported"):
+        assert not hasattr(daemon_mod, name), name
     d = start_agent(PORT, str(tmp_path / "s"))
     try:
         server = d.serve_xds()
@@ -608,6 +610,43 @@ def test_later_slices_are_refused_by_name(tmp_path):
     with pytest.raises(OSError):
         socket.create_connection(("127.0.0.1", server.port),
                                  timeout=2).close()
+
+
+def test_wait_for_regenerations_waits_out_a_trigger_round(tmp_path):
+    """``Trigger.wait_idle`` holds until a run ends, and
+    ``Daemon.wait_for_regenerations`` until the policy trigger's run and
+    the builds it queued are done (an identity change makes no new
+    revision for ``wait_for_policy_revision`` to see)."""
+    from cilium_tpu_torch.utils.trigger import Trigger
+    gate, runs = threading.Event(), []
+    t = Trigger(lambda r: (gate.wait(5), runs.append(r)), name="test")
+    try:
+        assert t.wait_idle(0)
+        t.trigger("a")
+        assert not t.wait_idle(0.1)
+        gate.set()
+        assert t.wait_idle(5) and runs == [["a"]]
+    finally:
+        t.shutdown()
+    d = start_agent(PORT, str(tmp_path / "s"))
+    try:
+        for ep_id in (1, 2):
+            d.endpoint_create(ep_id, ipv4=f"10.0.0.{ep_id}",
+                              labels=[f"k8s:app=a{ep_id}"])
+        assert d.wait_for_regenerations(30)
+        build, done = d.endpoints._build_one, []
+
+        def slow(ep_id):
+            time.sleep(0.2)
+            build(ep_id)
+            done.append(ep_id)
+
+        d.endpoints._build_one = slow
+        d.trigger_policy_updates("identity-change")
+        assert d.wait_for_regenerations(30)
+        assert sorted(done) == [1, 2]
+    finally:
+        d.shutdown()
 
 
 def test_the_agent_serves_xds(tmp_path):

@@ -8,7 +8,9 @@ equal, apart from the fields named in ``VOLATILE`` (times, durations)
 and proxy ports (renamed by redirect id).  The same CLI commands run
 against both, and their output must be equal.  ``/metrics`` is compared
 by series name: the two packages keep separate registries.  The agent
-command's refusals and its ``--device`` default are checked last.
+command's host integrations (a fake apiserver, a fake dockerd), the
+``cni``, ``docker-plugin`` and ``bugtool`` commands and the agent's
+``--device`` default are checked last.
 """
 
 import io
@@ -324,15 +326,141 @@ def test_cli_local_commands_match(tmp_path):
 
 # ------------------------------------------------------------ the agent
 
-def test_agent_refuses_later_slices():
-    base = ["agent", "--device", "cpu", "--api-port", "0"]
-    for extra, item in ((["--k8s-api-server", "http://x"], "item 8.4"),
-                        (["--docker-socket", "/x.sock"], "item 8.4")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli_main(base + extra)
-    for cmd in ("cni", "docker-plugin", "bugtool"):
-        with pytest.raises(NotImplementedError, match="item 8.4"):
-            cli_main(["--api", "http://127.0.0.1:1", cmd])
+def _agent_url(capsys) -> str:
+    out = capsys.readouterr().out
+    return re.search(r"api=(http://\S+)", out).group(1)
+
+
+def test_agent_refuses_later_slices(capsys, monkeypatch):
+    """Its name is kept from when it checked the refusals of the
+    slices not yet ported; with the host integrations ported it checks
+    the opposite: nothing is refused.  ``agent --k8s-api-server`` against
+    a fake apiserver and ``--docker-socket`` against a fake dockerd
+    start on the CPU, take a CNP, a pod and a container into the agent
+    and stop every thread they started; ``cni``, ``docker-plugin`` and
+    ``bugtool`` run against an agent."""
+    import shutil
+    import tarfile
+    import tempfile
+    import threading
+    import types
+
+    import cilium_tpu_torch.cli as cli_mod
+    from cilium_tpu_torch import docker_plugin as dp_mod
+    from cilium_tpu_torch.k8s.fake_apiserver import FakeAPIServer
+    from test_torch_host_integrations import FakeDockerd
+
+    def wait_for(fn, timeout=30.0):
+        import time as _time
+        deadline = _time.monotonic() + timeout
+        while _time.monotonic() < deadline:
+            if fn():
+                return True
+            _time.sleep(0.05)
+        return fn()
+
+    def run_agent(extra, serving):
+        """The agent with ``extra`` flags; ``serving(url)`` runs where
+        the agent would sleep, then the agent is interrupted."""
+        checked = []
+
+        def sleep(_s):
+            checked.append(serving(_agent_url(capsys)))
+            raise KeyboardInterrupt
+
+        monkeypatch.setattr(cli_mod, "time", types.SimpleNamespace(
+            sleep=sleep))
+        before = {t.ident for t in threading.enumerate()}
+        assert cli_main(["agent", "--device", "cpu", "--api-port", "0",
+                         "--state-dir", ""] + extra) == 0
+        assert checked == [True]
+        assert wait_for(lambda: not [
+            t.name for t in threading.enumerate()
+            if t.ident not in before and t.name.startswith(
+                ("reflector-", "serializer-", "cnp-status",
+                 "docker-events"))])
+
+    fake = FakeAPIServer().start()
+    sock_dir = tempfile.mkdtemp(prefix="dk")
+    dockerd = FakeDockerd(sock_dir + "/d.sock").start()
+    try:
+        fake.upsert("ciliumnetworkpolicies", {
+            "metadata": {"name": "web", "namespace": "prod"},
+            "spec": {"endpointSelector": {"matchLabels": {"app": "web"}},
+                     "ingress": [{"fromEndpoints": [
+                         {"matchLabels": {"app": "client"}}]}]}})
+        fake.upsert("pods", {
+            "metadata": {"name": "p", "namespace": "prod"}, "spec": {},
+            "status": {"podIP": "10.30.0.9", "hostIP": "192.168.0.9"}})
+        run_agent(["--k8s-api-server", fake.base_url], lambda url: wait_for(
+            lambda: len(call(url, "GET", "/policy")[1]["policy"]) == 1 and
+            "10.30.0.9/32" in json.dumps(call(url, "GET",
+                                              "/map/ipcache")[1])))
+        dockerd.start_container("ab" * 32, "web-1", {"app": "web"})
+        run_agent(["--docker-socket", dockerd.socket_path],
+                  lambda url: wait_for(lambda: [
+                      e["container-name"] for e in
+                      call(url, "GET", "/endpoint")[1]] == ["web-1"]))
+    finally:
+        dockerd.shutdown()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+        fake.shutdown()
+    monkeypatch.undo()
+
+    # the front-end commands against a running agent
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.utils.option import DaemonConfig
+    d = Daemon(config=DaemonConfig(state_dir=""), device="cpu")
+    srv = APIServer(d).start()
+    try:
+        for var in ("CNI_COMMAND", "CNI_CONTAINERID", "CILIUM_TPU_API"):
+            monkeypatch.setenv(var, "")
+        monkeypatch.delenv("CILIUM_TPU_API")
+        monkeypatch.setattr(sys, "stdin", io.StringIO(json.dumps(
+            {"ip": "10.200.0.50", "labels": {"app": "cni"}})))
+        rc, out, _ = run_cli(cli_main, srv.base_url, "cni", "add",
+                             "--container-id", "ctr-1")
+        assert rc == 0
+        assert json.loads(out)["ips"][0]["address"] == "10.200.0.50/32"
+        assert [e.ipv4 for e in d.endpoints.endpoints()] == ["10.200.0.50"]
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))
+        assert run_cli(cli_main, srv.base_url, "cni", "del",
+                       "--container-id", "ctr-1")[0] == 0
+        assert d.endpoints.endpoints() == []
+        rc, out, _ = run_cli(cli_main, srv.base_url, "cni", "version")
+        assert rc == 0 and json.loads(out)["cniVersion"] == "0.3.1"
+
+        with tempfile.TemporaryDirectory() as tmp:
+            rc, out, _ = run_cli(cli_main, srv.base_url, "bugtool", "-o",
+                                 f"{tmp}/b.tgz")
+            assert rc == 0 and out.strip() == \
+                f"Archive written: {tmp}/b.tgz"
+            with tarfile.open(f"{tmp}/b.tgz") as tar:
+                assert any(m.name.endswith("/status.json")
+                           for m in tar.getmembers())
+
+        activated = []
+
+        def plugin_sleep(_s):
+            import urllib.request as ur
+            url = re.search(r"ready on (http://\S+)",
+                            sys.stdout.getvalue()).group(1)
+            req = ur.Request(url + "/Plugin.Activate", data=b"{}",
+                             method="POST")
+            with ur.urlopen(req, timeout=10) as resp:
+                activated.append(json.loads(resp.read()))
+            raise KeyboardInterrupt
+
+        monkeypatch.setattr(dp_mod, "time", types.SimpleNamespace(
+            sleep=plugin_sleep))
+        rc, _out, _ = run_cli(cli_main, srv.base_url, "docker-plugin",
+                              "--listen-port", "0")
+        assert rc == 0
+        assert activated == [{"Implements": ["NetworkDriver",
+                                             "IpamDriver"]}]
+    finally:
+        srv.shutdown()
+        d.shutdown()
 
 
 def test_agent_defaults_to_the_card():

@@ -59,7 +59,9 @@ from cilium_tpu_torch.kvstore.identity_allocator import (
 from cilium_tpu_torch.kvstore.journal import WriteJournal
 from cilium_tpu_torch.kvstore.memory import MemStore
 from cilium_tpu_torch.kvstore.mini_etcd import MiniEtcd
-from cilium_tpu_torch.kvstore.outage import KVStoreDegradedError, OutageGuard
+from cilium_tpu_torch.kvstore.outage import (PROBE_KEY,
+                                              KVStoreDegradedError,
+                                              OutageGuard)
 from cilium_tpu_torch.kvstore.remote import RemoteBackend, RemoteTimeout
 from cilium_tpu_torch.kvstore.server import KVStoreServer
 from cilium_tpu_torch.kvstore.store import SharedStore
@@ -837,6 +839,46 @@ def test_outage_guard_degrades_journals_and_reconciles():
     assert guard.journal.depth() == 0
 
 
+def test_probe_that_outlives_ok_leaves_the_journal_to_the_reconcile():
+    """A tick reads the mode as ok and probes; the probe blocks for the
+    backend's timeout while other callers' failures degrade the guard
+    and journal a write; the backend comes back before the probe
+    returns.  That tick must leave the journal to the reconcile, whose
+    report then counts the write replayed (the reference drained it on
+    the stale reading, and ``test_daemon_outage_journey`` read
+    ``replayed`` 0 about one run in three)."""
+    entered, release = threading.Event(), threading.Event()
+
+    class _SlowProbe(_FlakyBackend):
+        def get(self, key):
+            if key == PROBE_KEY and not release.is_set():
+                entered.set()
+                release.wait(10)
+            return super().get(key)
+
+    inner = _SlowProbe()
+    guard = OutageGuard(inner, degrade=True, failure_threshold=2,
+                        probe_interval=0.0)
+    guard.set("t/pre", b"v0", lease=True)
+    ticking = threading.Thread(target=guard.tick)
+    ticking.start()
+    try:
+        assert entered.wait(10)
+        inner.fail = True
+        guard.set("t/k", b"v1", lease=True)
+        guard.set("t/k", b"v2", lease=True)
+        assert guard.mode == "degraded" and guard.journal.depth() == 1
+        inner.fail = False
+    finally:
+        release.set()
+        ticking.join(10)
+    assert guard.mode == "degraded" and guard.journal.depth() == 1
+    event = guard.tick()
+    assert event.get("reconciled") is True and guard.mode == "ok"
+    assert event["report"]["replayed"] == 1
+    assert inner.get("t/k") == b"v2"
+
+
 def test_outage_guard_disabled_is_passthrough():
     """degrade=False: bookkeeping only — every op delegates with
     identical semantics and exceptions (the pre-change behavior)."""
@@ -1087,6 +1129,69 @@ def test_daemon_outage_journey(etcd_server, injector):
     finally:
         d.shutdown()        # closes kv, the backend it was given
         observer.close()
+
+
+def test_promotion_follows_up_a_build_in_flight(etcd_server, injector):
+    """A build that takes its identity snapshot while an outage
+    endpoint still holds its local identity, and realizes its map only
+    after the promotion scanned the realized maps, is built again: db's
+    map names the promoted identity, not the local one.  (The
+    reference's scan, copied before, missed such a build and left its
+    map stale; ``chip_smoke.py``'s ``kvstore-outage`` leg hit that.)"""
+    kv = EtcdBackend(host="127.0.0.1", port=injector.proxy("etcd").port,
+                     lease_ttl=30.0, timeout=1.0)
+    cfg = DaemonConfig(state_dir="", drift_audit_interval_s=0,
+                       ct_checkpoint_interval_s=0,
+                       enable_kvstore_survival=True,
+                       kvstore_probe_interval_s=0.1,
+                       kvstore_failure_threshold=2)
+    d = Daemon(config=cfg, kvstore_backend=kv, node_name="n1",
+               device="cpu")
+    gate, held = threading.Event(), threading.Event()
+    try:
+        d.endpoint_create(1, ipv4=WEB_IP, labels=["k8s:id=web"])
+        db = d.endpoint_create(2, ipv4=DB_IP, labels=["k8s:id=db"])
+        rev = d.policy_add(rules_from_json(RULES_JSON))
+        assert d.wait_for_policy_revision(rev, timeout=60)
+        injector.blackhole("etcd")
+        _wait_for(lambda: d.status()["kvstore"]["mode"] == "degraded",
+                  msg="kvstore degraded")
+        # db's next build resolves its policy, then waits before it
+        # realizes the map
+        resolve = db.regenerate_policy
+
+        def held_resolve(*a, **kw):
+            res = resolve(*a, **kw)
+            held.set()
+            gate.wait(60)
+            return res
+
+        db.regenerate_policy = held_resolve
+        local_id = d.endpoint_create(
+            3, ipv4=TMP_IP, labels=["k8s:id=tmp"]).security_identity
+        assert is_local_scope_identity(local_id)
+        # the new identity's own trigger rebuilds every endpoint
+        assert held.wait(30), "db's build did not start"
+        injector.heal()
+        # the promotion's note comes after its scan of the maps
+        _wait_for(lambda: any(
+            e.note.startswith("identity-promotion")
+            for e in d.monitor.tail(1000, kind="agent")),
+            msg="local identities promoted")
+        del db.regenerate_policy
+        gate.set()
+        new_id = d.endpoints.lookup(3).security_identity
+        assert not is_local_scope_identity(new_id)
+
+        def db_keys():
+            state = PolicyMapState(d.endpoints.lookup(2).realized)
+            return {k.identity for k in state.keys() if k.dest_port == 7000}
+        _wait_for(lambda: d.wait_for_quiesce(0.1) and
+                  db_keys() == {new_id}, msg="db names the promoted id")
+        assert d.wait_for_quiesce(5) and db_keys() == {new_id}
+    finally:
+        gate.set()
+        d.shutdown()
 
 
 def test_daemon_flap_and_lease_expiry_repair(etcd_server, injector):
