@@ -21,7 +21,6 @@ import tempfile
 import time
 from typing import Callable, Dict, Optional
 
-from .observability import jit_telemetry
 from .observability.slo import slo_tracker
 
 
@@ -47,14 +46,13 @@ def _collectors(daemon) -> Dict[str, Callable[[], object]]:
             "prefilter": daemon.datapath.prefilter.dump()[0]},
         "metrics.txt": daemon.metrics_text,
         # runtime self-telemetry (observability/): the span-trace
-        # buffer, device-table pressure, compile/jit-cache counters
-        # and the host pipeline-stage breakdown — one archive answers
-        # "what was the agent doing"
+        # buffer, device-table pressure, policy propagation and the
+        # host pipeline-stage breakdown — one archive answers "what
+        # was the agent doing"
         "traces.json": daemon.traces,
         "map-pressure.json": lambda: daemon.datapath.map_pressure(
             daemon.config.map_pressure_warn),
         "compile-telemetry.json": lambda: {
-            "jit": jit_telemetry.report(),
             "propagation": daemon.propagation.report(50)},
         "pipeline.json": daemon.pipeline_report,
         # verdict provenance (datapath provenance + drift audit): the

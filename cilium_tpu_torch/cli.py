@@ -185,8 +185,8 @@ def cmd_status(c: Client, args) -> int:
               f"policy oracle (see /debuginfo provenance)")
     if getattr(args, "verbose", False):
         # self-telemetry detail (the status --verbose surface):
-        # per-map fill, compile/jit-cache accounting, tracer health,
-        # recent policy-propagation delays
+        # per-map fill, tracer health, recent policy-propagation
+        # delays
         for name, m in sorted(mp.get("maps", {}).items()):
             if m.get("pressure") is not None:
                 print(f"Map:           {name:14s} "
@@ -205,16 +205,6 @@ def cmd_status(c: Client, args) -> int:
                           f"{m['occupied']}/{m['capacity']} "
                           f"({m['pressure'] * 100:.1f}%)")
         tel = st.get("telemetry") or {}
-        jit = tel.get("jit") or {}
-        if jit:
-            compiles = sum((jit.get("compiles") or {}).values())
-            secs = sum((jit.get("compile-seconds") or {}).values())
-            print(f"JIT:           {compiles} compiles "
-                  f"({secs:.2f}s), cache "
-                  f"{jit.get('cache-hits', 0)} hits / "
-                  f"{jit.get('cache-misses', 0)} misses, "
-                  f"{jit.get('device-bytes-total', 0) / 1e6:.1f}MB "
-                  f"device tables")
         tracing = tel.get("tracing") or {}
         if tracing:
             state = "on" if tracing.get("enabled") else "off"

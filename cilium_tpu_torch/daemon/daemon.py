@@ -61,8 +61,8 @@ from ..l7.dns import DNSCache, DNSPoller, inject_to_cidr_set
 from ..labels import Labels
 from ..monitor import MonitorHub
 from ..node import NODES_PATH, Node, NodeManager, NodeRegistry
-from ..observability import (PolicyPropagationTracker, jit_telemetry,
-                             pipeline_report, slo_tracker, tracer)
+from ..observability import (PolicyPropagationTracker, pipeline_report,
+                             slo_tracker, tracer)
 from ..observability.events import recorder as flight_recorder
 from ..parallel.sharded import ShardedDatapath, ShardedTableManager
 from ..policy.api import Rule
@@ -119,7 +119,7 @@ class Daemon:
         # runtime self-telemetry (observability/): span tracing across
         # the control plane, the policy-propagation latency tracker
         # closed by the engine's revision-served hook, and the
-        # engine-side stage/jit/verdict accounting — one config switch
+        # engine-side stage and verdict accounting — one config switch
         # gates all of it
         tracer.configure(enabled=self.config.enable_tracing,
                          capacity=self.config.trace_capacity)
@@ -1850,11 +1850,10 @@ class Daemon:
             # --verbose` renders the same report
             "map-pressure": self.datapath.map_pressure(
                 self.config.map_pressure_warn),
-            # runtime self-telemetry: tracer health, compile/jit-cache
-            # accounting, recent policy-propagation delays
+            # runtime self-telemetry: tracer health and recent
+            # policy-propagation delays
             "telemetry": {
                 "tracing": self.tracer.stats(),
-                "jit": jit_telemetry.report(),
                 "propagation": self.propagation.report(5)},
             # serving SLO tier (observability/slo.py): per-lane
             # latency percentiles, deadline-budget burn rates and the

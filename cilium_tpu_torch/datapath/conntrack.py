@@ -18,6 +18,9 @@ program lets the last row win every field, while CUDA ``index_put_``
 picks any row, possibly a different one per field.  ``_elect`` makes
 the winner explicit: the highest batch row per slot, elected with one
 ``amax`` scatter of row numbers, and all fields are written from it.
+
+``ct_step`` and ``ct_set_rev_nat`` are the span ``dp:ct``, the create
+rounds ``dp:ct.create`` (``observability/stages.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..observability.stages import span, spanned
 from ..ops.hashtab_ops import hash_mix
 
 # Lifetimes (reference: conntrack.h:31-34).
@@ -143,6 +147,7 @@ def _elect(tgt: torch.Tensor, discard: int) -> torch.Tensor:
     return torch.where(winner[tgt] == rows, tgt, _i32(discard, tgt))
 
 
+@spanned("ct")
 def ct_step(ct: torch.Tensor, batch: CTBatch, now: torch.Tensor,
             create_mask: torch.Tensor,
             update_mask: Optional[torch.Tensor] = None,
@@ -223,19 +228,20 @@ def ct_step(ct: torch.Tensor, batch: CTBatch, now: torch.Tensor,
                           proxy_port_in])                     # [8, B]
     # Two rounds: flows that lose a same-batch race for a free slot
     # re-probe against the updated table and take the next free slot.
-    for _ in range(2):
-        still = create & ~_lookup(ct, fwd_k0, fwd_k1, fwd_k2, fwd_k3,
-                                  now, slots, max_probe)[0]
-        cidx = _probe_idx(fwd_k0, fwd_k1, fwd_k2, fwd_k3, slots,
-                          max_probe)
-        free = (ct[_K3][cidx] == 0) | (ct[_EXPIRES][cidx] <= now)
-        first_free = free & (torch.cumsum(free.to(torch.int32),
-                                          dim=1) == 1)
-        has_free = free.any(dim=1) & still
-        cslot = torch.where(first_free, cidx, zero).sum(dim=1,
-                                                        dtype=torch.int32)
-        tgt = torch.where(has_free, cslot, _i32(discard, zero))
-        ct[:, _elect(tgt, discard)] = fields
+    with span("ct.create"):
+        for _ in range(2):
+            still = create & ~_lookup(ct, fwd_k0, fwd_k1, fwd_k2, fwd_k3,
+                                      now, slots, max_probe)[0]
+            cidx = _probe_idx(fwd_k0, fwd_k1, fwd_k2, fwd_k3, slots,
+                              max_probe)
+            free = (ct[_K3][cidx] == 0) | (ct[_EXPIRES][cidx] <= now)
+            first_free = free & (torch.cumsum(free.to(torch.int32),
+                                              dim=1) == 1)
+            has_free = free.any(dim=1) & still
+            cslot = torch.where(first_free, cidx, zero).sum(
+                dim=1, dtype=torch.int32)
+            tgt = torch.where(has_free, cslot, _i32(discard, zero))
+            ct[:, _elect(tgt, discard)] = fields
 
     # --- verdict outputs, read from the final table -------------------
     entry_related = rfound & ((ct[_STATE][rslot] & _RELATED) != 0)
@@ -252,6 +258,7 @@ def ct_step(ct: torch.Tensor, batch: CTBatch, now: torch.Tensor,
     return verdict, rev_nat, proxy_port, ct
 
 
+@spanned("ct")
 def ct_set_rev_nat(ct: torch.Tensor, batch: CTBatch,
                    rev_nat_idx: torch.Tensor, now: torch.Tensor, *,
                    slots: int, max_probe: int) -> torch.Tensor:

@@ -30,6 +30,7 @@ still works on it.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -45,12 +46,11 @@ from ..device import DeviceLike, resolve_device, same_device
 from ..analytics.stage import (CTRL_COL, AnalyticsState, ctrl_row,
                                epoch_rows, make_analytics_state)
 from ..hubble.aggregation import FlowState, FlowTable
-from ..observability.jitstats import jit_telemetry
 from ..observability.pressure import compute_pressure
-from ..observability.stages import record_stage
+from ..observability.stages import host_span, record_stage, span
 from ..policy.mapstate import PolicyMapState
 from ..threat.stage import COL_WIN_TS, ThreatState, make_threat_state
-from ..utils.metrics import POLICY_VERDICTS
+from ..utils.metrics import CT_GC_ENTRIES, CT_GC_RUNS, POLICY_VERDICTS
 from .conntrack import FIELDS as CT_FIELDS, ConntrackTable
 from .events import format_rule, tier_name
 from .icmp6 import echo_reply
@@ -126,10 +126,10 @@ class Datapath:
         # fail-static oracle and the recovery gate answer from when no
         # DeviceTableManager owns the tensors
         self._host_states: Optional[List[PolicyMapState]] = None
-        # runtime self-telemetry (observability/): stage slices, first-
-        # call accounting and verdict-outcome counts, all taken after the
-        # step with the lock released; on_revision_served(revision) is
-        # called on the first dispatch at a new policy revision
+        # runtime self-telemetry (observability/): stage slices and
+        # verdict-outcome counts, all taken after the step with the lock
+        # released; on_revision_served(revision) is called on the first
+        # dispatch at a new policy revision
         self.telemetry_enabled = True
         self.on_revision_served = None
         self._served_revision = 0
@@ -141,6 +141,8 @@ class Datapath:
         self._verdict_lock = threading.Lock()
         self._pending_verdicts: List = []
         self._read_stream = None
+        # numbers each dispatch: the tag of its ``dp:engine.dispatch``
+        self._dispatch_seq = itertools.count(1)
         # the shared serving lane (created on first use) and its
         # supervision knobs (configure_supervision)
         self._serving: Optional[VerdictDispatcher] = None
@@ -892,18 +894,16 @@ class Datapath:
         payload lane on this engine's device
         (``l7/fast.encode_payloads``), read by the fast-verdict stage
         when it is on and ignored otherwise."""
-        return self._serve("engine-v4", "datapath.process",
-                           full_datapath_step, False, pkt, now, payload,
-                           int(pkt.endpoint.shape[0]))
+        return self._serve("engine-v4", full_datapath_step, False, pkt,
+                           now, payload, int(pkt.endpoint.shape[0]))
 
     def process6(self, pkt: FullPacketBatch6, now: Optional[int] = None,
                  payload: Optional[torch.Tensor] = None):
         """Classify a v6 batch (bpf_lxc.c:745 ipv6_policy).  Returns
         (verdict, event, identity, nat6), device tensors; ``payload`` as
         for ``process``."""
-        return self._serve("engine-v6", "datapath.process6",
-                           full_datapath_step6, True, pkt, now, payload,
-                           int(pkt.sport.shape[0]))
+        return self._serve("engine-v6", full_datapath_step6, True, pkt,
+                           now, payload, int(pkt.sport.shape[0]))
 
     def process_packed(self, packed: torch.Tensor,
                        now: Optional[int] = None,
@@ -912,29 +912,34 @@ class Datapath:
         this engine's device (``pipeline.PACKED_FIELDS`` order): the
         serving path's entry, one host-to-device copy per batch.  Same
         outputs as ``process``; ``payload`` rides beside the matrix."""
-        return self._serve("engine-v4", "datapath.process",
-                           full_datapath_step_packed, False, packed, now,
-                           payload, int(packed.shape[1]))
+        return self._serve("engine-v4", full_datapath_step_packed, False,
+                           packed, now, payload, int(packed.shape[1]))
 
-    def _serve(self, family: str, entry: str, step, family6: bool, batch,
+    def _serve(self, family: str, step, family6: bool, batch,
                now: Optional[int], payload, rows: int):
-        """One dispatch under the lock, then (lock released) its
-        telemetry and the revision-served hook."""
-        ts = self._timestamp(now)
-        telem = self.telemetry_enabled
-        t0 = time.perf_counter() if telem else 0.0
-        with self._lock:
-            t_lock = time.perf_counter() if telem else 0.0
-            out = self._dispatch_locked(step, family6, batch, ts, payload,
-                                        rows)
-            generation = self.rebuilds
-            served = self._revision_newly_served_locked()
-        if telem:
-            self._account_dispatch(family, entry, generation, rows, t0,
-                                   t_lock, out[0])
-        if served:
-            self._notify_revision_served(served)
-        return out
+        """One dispatch under the lock, then (lock released) its stage
+        slice and the revision-served hook; the whole call is the span
+        ``dp:engine.dispatch#<n>``, n its sequence number."""
+        with span("engine.dispatch", next(self._dispatch_seq)):
+            ts = self._timestamp(now)
+            telem = self.telemetry_enabled
+            if telem:
+                with host_span(family, "lock-wait", "engine.lock_wait"):
+                    self._lock.acquire()
+            else:
+                self._lock.acquire()
+            try:
+                t_lock = time.perf_counter() if telem else 0.0
+                out = self._dispatch_locked(step, family6, batch, ts,
+                                            payload, rows)
+                served = self._revision_newly_served_locked()
+            finally:
+                self._lock.release()
+            if telem:
+                self._account_dispatch(family, t_lock, out[0])
+            if served:
+                self._notify_revision_served(served)
+            return out
 
     # -- the serving lane (datapath/serving.py, datapath/supervisor.py) ---
 
@@ -1045,24 +1050,21 @@ class Datapath:
 
     # -- self-telemetry (observability/) ----------------------------------
 
-    def _account_dispatch(self, family: str, entry: str, generation: int,
-                          batch: int, t0: float, t_lock: float,
+    def _account_dispatch(self, family: str, t_lock: float,
                           verdict: torch.Tensor) -> None:
-        """Stage slices, first-call classification and deferred verdict
-        accounting of one dispatch, after the lock is released."""
-        t_done = time.perf_counter()
-        record_stage(family, "lock-wait", t_lock - t0)
-        record_stage(family, "dispatch", t_done - t_lock)
-        jit_telemetry.record(entry, generation, int(batch),
-                             t_done - t_lock)
-        done = None
-        if verdict.is_cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(verdict.device))
-        with self._verdict_lock:
-            self._pending_verdicts.append((verdict, done))
-            self._flush_verdict_counts(
-                force=len(self._pending_verdicts) > 8)
+        """The dispatch's stage slice (its time under the lock) and
+        deferred verdict accounting, after the lock is released: the
+        span ``dp:engine.telemetry``."""
+        with span("engine.telemetry"):
+            record_stage(family, "dispatch", time.perf_counter() - t_lock)
+            done = None
+            if verdict.is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(verdict.device))
+            with self._verdict_lock:
+                self._pending_verdicts.append((verdict, done))
+                self._flush_verdict_counts(
+                    force=len(self._pending_verdicts) > 8)
 
     def _verdict_read_stream(self):
         """Context of the side stream verdict counts are read on (no
@@ -1392,9 +1394,17 @@ class Datapath:
             return self.ct.entry_count() + self.ct6.entry_count()
 
     def gc(self, now: Optional[int] = None) -> int:
-        with self._lock:
-            ts = now if now is not None else int(time.time())
-            return self.ct.gc(ts) + self.ct6.gc(ts)
+        """Clear both CT tables' expired entries; returns how many.  The
+        lock, the sweeps and the count's read are the span
+        ``dp:ct.gc``, timed as the stage slice ("ct", "gc")."""
+        with host_span("ct", "gc", "ct.gc"):
+            with self._lock:
+                ts = now if now is not None else int(time.time())
+                n = self.ct.gc(ts) + self.ct6.gc(ts)
+        CT_GC_RUNS.inc()
+        if n:
+            CT_GC_ENTRIES.inc(n, labels={"status": "deleted"})
+        return n
 
 
 def _tensor_leaves(tree) -> int:

@@ -11,7 +11,8 @@ addresses in the backend and rev-NAT rows.
 JAX clamps an out-of-range gather index and CUDA faults on one, so the
 port clips each gather index the reference lets its clamp absorb: the
 backend index of a zero-backend service that is compiled last lies one
-past the backend arrays.
+past the backend arrays.  The DNAT and reverse-NAT steps of both
+families are the span ``dp:lb`` (``observability/stages.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from ..compiler.hashtab import build_hash_table
 from ..compiler.lpm import _hash6 as _hash6_host
 from ..device import DeviceLike, resolve_device
+from ..observability.stages import spanned
 from ..ops.hashtab_ops import batched_lookup, fold6, hash_mix
 from ..ops.lpm_ops import _hash6
 
@@ -135,6 +137,7 @@ def select_slave(h: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     return torch.where(count > 0, torch.abs(h) % n, torch.zeros_like(h))
 
 
+@spanned("lb")
 def lb_step(tables: LBTables, daddr, dport, proto, saddr, sport, *,
             max_probe: int
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -163,6 +166,7 @@ def lb_step(tables: LBTables, daddr, dport, proto, saddr, sport, *,
     return new_daddr, new_dport, rev_nat, ok
 
 
+@spanned("lb")
 def lb_rev_nat(tables: LBTables, saddr, sport, rev_nat_idx
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reply-path reverse NAT: restore VIP/port for flows whose CT entry
@@ -287,6 +291,7 @@ def compile_lb6(services: Sequence[Service6],
                        num_services=n, num_backends=len(b_addr))
 
 
+@spanned("lb")
 def lb6_step(tables: LB6Tables, daddr, dport, proto, saddr, sport, *,
              max_probe: int
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -325,6 +330,7 @@ def lb6_step(tables: LB6Tables, daddr, dport, proto, saddr, sport, *,
     return new_daddr, new_dport, rev_nat, ok
 
 
+@spanned("lb")
 def lb6_rev_nat(tables: LB6Tables, saddr, sport, rev_nat_idx
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reply-path v6 reverse NAT (lb6_rev_nat): saddr [B, 4].  The index

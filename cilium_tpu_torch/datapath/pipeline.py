@@ -15,7 +15,8 @@ flag: the L7 fast verdict over a [B, W] payload lane
 ``analytics/stage.py``).  With every flag off a step runs exactly the
 operations it ran before the stages existed.  Eager torch: the counters,
 the CT, flow, threat and analytics state are updated in place, and no
-step reads a device value on the host.
+step reads a device value on the host.  The L7 fast stage is the span
+``dp:l7fast`` (``observability/stages.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ..compiler.policy_tables import CompiledPolicy
 from ..device import DeviceLike, resolve_device
 from ..compiler.lpm import CompiledLPM6
 from ..hubble.aggregation import FlowState, flow_update_step
+from ..observability.stages import spanned
 from ..ops.hashtab_ops import fold6
 from ..ops.dfa_engine import _stride_scan
 from ..ops.lpm_ops import lpm6_lookup, lpm_lookup
@@ -322,6 +324,7 @@ def full_datapath_step_packed(tables: FullTables, ct: torch.Tensor,
                               payload, threat, analytics, **statics)
 
 
+@spanned("l7fast")
 def _l7_fast_stage(tables, payload: torch.Tensor,
                    pol_verdict: torch.Tensor, pol_slot: torch.Tensor, *,
                    k: int, c1: int):

@@ -13,6 +13,7 @@ Counters are uint32 in the reference.  Torch has no ``index_add_`` for
 uint32, so the port holds them as int32 that wraps at 2**32: the same
 bits, read back through ``.numpy().view(np.uint32)``.  The port runs
 eagerly and adds into the counters in place, where JAX rebinds them.
+``verdict_step`` is the span ``dp:policy`` (``observability/stages.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..compiler.policy_tables import CompiledPolicy, pack_meta
 from ..device import DeviceLike, resolve_device
+from ..observability.stages import spanned
 from ..ops.hashtab_ops import batched_lookup
 from .codes import VERDICT_ALLOW, VERDICT_DROP, VERDICT_DROP_FRAG
 from .events import (TIER_DENY, TIER_L3_ALLOW, TIER_L4_RULE,
@@ -99,6 +101,7 @@ def _policy_provenance(pkt: PacketBatch, f1, v1, s1, f2, s2, f3, v3,
     return Provenance(match_slot=slot, tier=tier)
 
 
+@spanned("policy")
 def verdict_step(key_id: torch.Tensor, key_meta: torch.Tensor,
                  value: torch.Tensor, counters: Counters,
                  pkt: PacketBatch, max_probe: int,

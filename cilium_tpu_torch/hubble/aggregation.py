@@ -23,6 +23,7 @@ Where several claiming rows ``set`` one slot, JAX on the CPU keeps the
 last row in every lane and CUDA ``index_put_`` any row, per lane; the
 claim elects the highest row per slot (``conntrack._elect``) and writes
 all four lanes from it.  Nothing here reads a device value on the host.
+``flow_update_step`` is the span ``dp:flow`` (``observability/stages.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from ..datapath.conntrack import _elect
 from ..device import DeviceLike, resolve_device
+from ..observability.stages import spanned
 from ..ops.hashtab_ops import hash_mix
 
 # event' = event + EVENT_BIAS: maps every defined code (drops -136..-1,
@@ -105,6 +107,7 @@ def _first_rows(claim: torch.Tensor, budget: int) -> torch.Tensor:
     return rows[:budget]
 
 
+@spanned("flow")
 def flow_update_step(st: FlowState, src_id, dst_id, dport, proto,
                      event, length, now: torch.Tensor,
                      active: Optional[torch.Tensor] = None, *,

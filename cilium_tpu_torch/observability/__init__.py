@@ -6,10 +6,10 @@ Copies of the ``cilium_tpu/observability`` modules:
                     propagation, served at /debug/traces;
 - ``propagation`` — policy-propagation latency: every revision's path
                     import -> compile -> device apply -> first verdict;
-- ``jitstats``    — first-call-per-geometry accounting of the engine's
-                    entry points;
 - ``stages``      — host-timed pipeline stage slices and blocking
-                    boundaries (``pipeline_report()``);
+                    boundaries (``pipeline_report()``), and the
+                    program's ``dp:`` ranges on the profiler's clock
+                    (``span``, ``host_span``);
 - ``pressure``    — map-pressure gauges and warning thresholds for every
                     device table;
 - ``events``      — the incident flight recorder of degraded-condition
@@ -21,8 +21,8 @@ Copies of the ``cilium_tpu/observability`` modules:
 from .tracer import Span, SpanContext, Tracer, tracer
 from .propagation import (POLICY_IMPLEMENTATION_DELAY,
                           PolicyPropagationTracker)
-from .jitstats import JitTelemetry, jit_telemetry
-from .stages import PIPELINE_STAGE_SECONDS, pipeline_report, record_stage
+from .stages import (PIPELINE_STAGE_SECONDS, host_span, pipeline_report,
+                     record_stage, span)
 from .pressure import MAP_PRESSURE, compute_pressure
 from .events import EVENT_TYPES, FlightEvent, FlightRecorder, recorder
 from .slo import SLOTracker, slo_tracker
@@ -30,8 +30,8 @@ from .slo import SLOTracker, slo_tracker
 __all__ = [
     "Span", "SpanContext", "Tracer", "tracer",
     "POLICY_IMPLEMENTATION_DELAY", "PolicyPropagationTracker",
-    "JitTelemetry", "jit_telemetry",
-    "PIPELINE_STAGE_SECONDS", "pipeline_report", "record_stage",
+    "PIPELINE_STAGE_SECONDS", "host_span", "pipeline_report",
+    "record_stage", "span",
     "MAP_PRESSURE", "compute_pressure",
     "EVENT_TYPES", "FlightEvent", "FlightRecorder", "recorder",
     "SLOTracker", "slo_tracker",

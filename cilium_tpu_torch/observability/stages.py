@@ -8,14 +8,34 @@ kernels than the launch queue holds), and the completion wait that
 blocks on real compute.  Each slice is timed where it runs into one
 labeled histogram plus a running summary served by
 ``pipeline_report()``.
+
+The same module names the program's own ranges on the profiler's
+clock: ``span(name)`` opens a range ``dp:<name>`` while a profiler runs
+(and is a shared no-op otherwise), ``host_span(family, stage, name)`` is
+that range timed into ``record_stage`` on exit, and ``spanned(name)``
+wraps a whole function in one.  A device activity belongs to the
+innermost ``dp:`` range open on its launching thread at its runtime
+call, so a range's device time is its self time.  The ranges are
+recorded as functions (``_RecordFunctionFast``), not as the user
+annotations ``torch.profiler.record_function`` makes: the profiler
+gives a user annotation a twin on the device's timeline, which a reader
+of the device's activities would have to tell apart from its kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import threading
-from typing import Dict
+import time
+from typing import Dict, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 from ..utils.metrics import registry
+
+SPAN_PREFIX = "dp:"
 
 PIPELINE_STAGE_SECONDS = registry.histogram(
     "pipeline_stage_seconds",
@@ -97,3 +117,41 @@ def pipeline_report() -> Dict:
 def reset() -> None:
     with _lock:
         _stats.clear()
+
+
+# the one no-op context every span returns while no profiler runs
+NOOP_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, tag: Optional[object] = None):
+    """The range ``dp:<name>`` (``dp:<name>#<tag>`` with a tag, such as
+    a batch's sequence number) while a profiler runs, else
+    ``NOOP_SPAN``: no range is made and nothing is allocated.  The
+    check is one read of the flag the profiler's start and stop set."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NOOP_SPAN
+    label = SPAN_PREFIX + name if tag is None else \
+        f"{SPAN_PREFIX}{name}#{tag}"
+    return _RecordFunctionFast(label)
+
+
+@contextlib.contextmanager
+def host_span(family: str, stage: str, name: str):
+    """``span(name)`` whose host wall time is also recorded as the
+    stage slice ``(family, stage)``: the ``/debug/pipeline`` histograms
+    and the trace come from one place."""
+    t0 = time.perf_counter()
+    with span(name):
+        yield
+    record_stage(family, stage, time.perf_counter() - t0)
+
+
+def spanned(name: str):
+    """Decorator: the whole call inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap

@@ -5,7 +5,8 @@ lengths (descending), a masked exact-match probe; the first (= longest)
 hit wins, selected by the same cumsum mask (``hit & cumsum(hit) == 1``)
 as the reference.  ``lpm_lookup`` takes IPv4 addresses (one word),
 ``lpm6_lookup`` IPv6 addresses ([B, 4] big-endian words, all four
-compared).
+compared).  Each lookup is the span ``dp:lpm`` and its first-hit
+select ``dp:lpm.select`` (``observability/stages.py``).
 """
 
 from __future__ import annotations
@@ -14,11 +15,13 @@ from typing import Tuple
 
 import torch
 
+from ..observability.stages import spanned
 from .hashtab_ops import hash_mix
 
 LPM_MISS = -1
 
 
+@spanned("lpm")
 def lpm_lookup(masks: torch.Tensor, key_a: torch.Tensor,
                key_b: torch.Tensor, value: torch.Tensor,
                prefix_lens: torch.Tensor, addrs: torch.Tensor,
@@ -57,6 +60,7 @@ def lpm_lookup(masks: torch.Tensor, key_a: torch.Tensor,
     return _first_hit(hit, got_v)
 
 
+@spanned("lpm.select")
 def _first_hit(hit: torch.Tensor, got_v: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(found [B], value [B]) of the first prefix length that hits, from
@@ -79,6 +83,7 @@ def _hash6(w0, w1, w2, w3, occ):
     return hash_mix(hash_mix(w0, w1), hash_mix(w2 ^ occ, w3))
 
 
+@spanned("lpm")
 def lpm6_lookup(masks: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor,
                 k2: torch.Tensor, k3: torch.Tensor, kb: torch.Tensor,
                 value: torch.Tensor, prefix_lens: torch.Tensor,

@@ -3,8 +3,9 @@
 Copy of ``cilium_tpu/utils/metrics.py``'s registry (counters, gauges,
 histograms, text exposition) with only the series the port writes: the
 endpoint build queue's, the daemon's policy and identity gauges, the
-verdict outcomes and their provenance, the drift audit, the dataplane
-supervision series with their per-shard twins, the controllers',
+verdict outcomes and their provenance, the conntrack GC sweeps, the
+drift audit, the dataplane supervision series with their per-shard
+twins, the controllers',
 Hubble's and its federation's, the kvstore's and the optional stages'
 (threat, analytics, L7 fast).  The serving, SLO, stage
 and flight-recorder series are registered by their own modules.
@@ -257,6 +258,13 @@ POLICY_IMPORT_ERRORS = registry.counter(
     "policy_import_errors", "Count of failed policy imports")
 POLICY_VERDICTS = registry.counter(
     "policy_verdicts_total", "Datapath verdicts by outcome")
+# Conntrack GC series (Cilium's datapath_conntrack_gc_*).
+CT_GC_RUNS = registry.counter(
+    "datapath_conntrack_gc_runs_total",
+    "Conntrack garbage-collection sweeps")
+CT_GC_ENTRIES = registry.counter(
+    "datapath_conntrack_gc_entries",
+    "Conntrack entries by garbage-collection outcome")
 # Verdict provenance series (datapath/events.py TIER_*): which stage
 # of the compiled pipeline decided, which compiled entries are doing
 # the denying, and the drift audit's correctness oracle.

@@ -242,7 +242,7 @@ class DaemonConfig:
     serving_slo_objective_s: float = 0.050
     serving_slo_error_budget: float = 0.001
     # runtime self-telemetry (observability/): span tracing +
-    # stage/jit/verdict accounting.  Disabling drops the datapath's
+    # stage and verdict accounting.  Disabling drops the datapath's
     # telemetry cost to ~0 (the tracing-overhead bench's off leg).
     enable_tracing: bool = True
     trace_capacity: int = 4096

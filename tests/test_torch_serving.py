@@ -416,15 +416,13 @@ def test_unfinished_slot_is_replaced_not_reused():
 def test_telemetry_stages_and_verdict_counts():
     """With telemetry on, the lane's stages are queue-wait, pack,
     dispatch and complete, and complete is the one blocking boundary;
-    the engine records its lock-wait and dispatch, a first call per
-    batch geometry, the verdict outcomes (read back once finished) and
-    the first dispatch at a new revision."""
+    the engine records its lock-wait and dispatch, the verdict outcomes
+    (read back once finished) and the first dispatch at a new
+    revision."""
     from cilium_tpu_torch.observability import stages
-    from cilium_tpu_torch.observability.jitstats import jit_telemetry
     from cilium_tpu_torch.utils.metrics import POLICY_VERDICTS
 
     stages.reset()
-    jit_telemetry.reset()
     dp = port_engine()
     dp.telemetry_enabled = True
     served = []
@@ -444,7 +442,6 @@ def test_telemetry_stages_and_verdict_counts():
         assert [n for n, d in rep[lane.family].items()
                 if d["blocking-boundary"]] == ["complete"]
         assert rep["engine-v4"]["dispatch"]["count"] == 3
-        assert jit_telemetry.report()["cache-misses"] == 1
         # every row of the padded batch is counted, as in the reference
         assert POLICY_VERDICTS.total() - before == 3 * 64
         assert served == [1] and not dp._pending_verdicts
